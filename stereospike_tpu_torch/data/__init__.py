@@ -1,1 +1,1 @@
-"""Event voxelization on the device."""
+"""Event voxelization on the device, and synthetic training batches."""

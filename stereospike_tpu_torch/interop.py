@@ -5,8 +5,8 @@ The port's parameters already live under the reference ``.pth`` keys
 (``models/stereospike.py::SITE_KEYS``), so the bridge from the JAX
 parameter tree (HWIO weights, ``{'bottom': {'w'}, 'sew1': {'conv1': ...},
 'pred1': {'w', 'b'}, 'plif': {site: w}}``) is a transposition to OIHW and
-a renaming. Arrays come in and go out as numpy, so neither package imports
-the other.
+a renaming, both ways (:func:`params_from_jax`, :func:`params_to_jax`).
+Arrays come in and go out as numpy, so neither package imports the other.
 
 State: the JAX package keeps NHWC membranes, with the level-0 sites
 ``bottom`` and ``deconv1`` in space-to-depth layout ``[B, H/2, W/2, 4C]``
@@ -56,6 +56,27 @@ def params_from_jax(tree: Mapping, cfg: StereoSpikeConfig, *,
         if plif_key is not None and site in tree.get("plif", {}):
             out[plif_key] = np.asarray(tree["plif"][site]).reshape(())
     return {k: torch.from_numpy(np.array(v, order="C")).to(device) for k, v in out.items()}
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor],
+                  cfg: StereoSpikeConfig) -> Dict[str, object]:
+    """The port's parameter dict → the JAX parameter tree with numpy leaves
+    (the inverse of :func:`params_from_jax`), in the tensors' own dtype."""
+    tree: Dict[str, object] = {}
+    for site in _site_shapes(cfg):
+        stem, scale_key, plif_key = SITE_KEYS[site]
+        leaf = {"w": params[f"{stem}.weight"].detach().cpu().numpy().transpose(2, 3, 1, 0)}
+        if f"{stem}.bias" in params:
+            leaf["b"] = params[f"{stem}.bias"].detach().cpu().numpy()
+        if scale_key in params:
+            leaf["scale"] = params[scale_key].detach().cpu().numpy().reshape(1)
+        node = tree
+        for p in _JAX_PATHS[site][:-1]:
+            node = node.setdefault(p, {})
+        node[_JAX_PATHS[site][-1]] = {k: np.ascontiguousarray(v) for k, v in leaf.items()}
+        if plif_key is not None and plif_key in params:
+            tree.setdefault("plif", {})[site] = params[plif_key].detach().cpu().numpy().reshape(())
+    return tree
 
 
 def _s2d_site(cfg: StereoSpikeConfig, site: str) -> bool:

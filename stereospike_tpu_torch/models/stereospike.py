@@ -13,7 +13,10 @@ Parameters are a flat dict of tensors under the reference ``.pth`` keys
 (``bottom.0.weight``, ``bottleneck.0.sn1.w``, ...), weights OIHW. Membrane
 state is a dict of NCHW tensors, one per spiking site plus the integrator
 pool ``Ineurons``. Every spiking site goes through the fused fire kernel
-(:func:`stereospike_tpu_torch.snn.cuda_kernels.multistep_fire`) at T = 1.
+(:func:`stereospike_tpu_torch.snn.cuda_kernels.multistep_fire`) at T = 1,
+whose backward (the site's surrogate derivative, and the PLIF leak's
+gradient through ``sigmoid(w)`` to ``w``) is the hand-written backward
+kernel when a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -23,10 +26,12 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from stereospike_tpu_torch.nn.blocks import conv_scale, sew_block_apply, upsample_conv_scale
 from stereospike_tpu_torch.snn.cuda_kernels import multistep_fire
 from stereospike_tpu_torch.snn.neurons import integrator_step, plif_w_from_tau
+from stereospike_tpu_torch.snn.surrogate import resolve_alpha
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
@@ -139,6 +144,14 @@ class StereoSpikeConfig:
     def site_neuron(self, site: str) -> str:
         return self.effective_sew_neuron if site.startswith("sew") else self.neuron
 
+    def site_surrogate(self, site: str) -> Tuple[str, float]:
+        """(surrogate, alpha) of a spiking site: the SEW sites' own, the
+        encoder/decoder's elsewhere; alpha defaults by surrogate."""
+        if site.startswith("sew"):
+            return self.sew_surrogate, resolve_alpha(self.sew_surrogate,
+                                                     self.sew_surrogate_alpha)
+        return self.surrogate, resolve_alpha(self.surrogate, self.surrogate_alpha)
+
 
 # ------------------------------------------------------------------ params
 def _site_shapes(cfg: StereoSpikeConfig) -> Dict[str, Tuple[int, int, int]]:
@@ -227,7 +240,8 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     each [B, H, W, 1]; ``spikes`` = [out_rconv, out_add4, ..., out_add1] as
     NHWC views; ``new_state`` the membrane state after this step.
     ``fire_fn`` is the fused fire (the kernel wrapper; its plain version
-    for a comparison run)."""
+    for a comparison run). Gradients flow to ``params`` and ``frame``
+    through the fire's surrogate when grad mode is on."""
     if not cfg.detach_reset or cfg.v_reset != 0.0:
         raise NotImplementedError(
             "the fused fire kernel implements the detached hard reset to 0 "
@@ -238,9 +252,11 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     new_state: State = {}
 
     def fire(site: str, x: torch.Tensor) -> torch.Tensor:
+        surrogate, alpha = cfg.site_surrogate(site)
         spikes, v = fire_fn(x.reshape(1, -1), state[site].reshape(-1),
                             _leak(params, cfg, site, x), cfg.v_threshold,
-                            cfg.v_reset, cfg.site_neuron(site) == "if")
+                            cfg.v_reset, cfg.site_neuron(site) == "if",
+                            surrogate=surrogate, alpha=alpha)
         new_state[site] = v.view(x.shape)
         return spikes.view(x.shape)
 
@@ -285,3 +301,29 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     b, _, h, w = v_depth.shape
     depths = [depths_by_scale[s].reshape(b, h, w, 1) for s in sorted(cfg.heads)]
     return depths, [s.permute(0, 2, 3, 1) for s in spikes], new_state
+
+
+def forward_sequence(params: Params, frames: torch.Tensor, cfg: StereoSpikeConfig,
+                     state: Optional[State] = None, *, remat: bool = False,
+                     fire_fn: FireFn = multistep_fire):
+    """Run :func:`forward` over time. ``frames``: [B, T, H, W, C].
+
+    Membrane potentials (the depth integrator's included) carry across the
+    steps; returns the **last** step's ``(depths, spikes, new_state)``.
+    Steps 0..T-2 keep only the state. ``remat=True`` recomputes each of
+    them in the backward pass (``torch.utils.checkpoint``), so memory holds
+    O(1) steps of activations instead of O(T); their fire kernels then
+    launch twice."""
+    steps = frames.shape[1]
+    if state is None:
+        state = init_state(cfg, frames.shape[0], frames.dtype, device=frames.device)
+
+    def step(st: State, frame: torch.Tensor) -> State:
+        return forward(params, frame, cfg, st, fire_fn=fire_fn)[2]
+
+    for t in range(steps - 1):
+        if remat:
+            state = checkpoint(step, state, frames[:, t], use_reentrant=False)
+        else:
+            state = step(state, frames[:, t])
+    return forward(params, frames[:, -1], cfg, state, fire_fn=fire_fn)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,6 +64,53 @@ def upsample_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = 
     k = w.shape[-1]
     up = nearest_upsample(x, (target_hw[0] + k - 1, target_hw[1] + k - 1))
     return conv2d(up, w, b, stride=1, padding=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_weights(in_size: int, out_size: int,
+                    align_corners: bool) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Source rows (lo, hi) and the float32 weight of ``hi`` for a linear
+    resize, by the JAX package's rule (torch ``F.interpolate`` semantics).
+    align_corners: ``src = dst·(in-1)/(out-1)``; otherwise ``src =
+    (dst+0.5)·in/out - 0.5`` clipped to [0, in-1]. Computed in float64 on
+    the host and rounded once, so the weights do not depend on how a
+    device would form the scale."""
+    if align_corners:
+        if out_size == 1:
+            src = np.zeros(1)
+        else:
+            src = np.arange(out_size) * (in_size - 1) / (out_size - 1)
+    else:
+        src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
+        src = np.clip(src, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = (src - lo).astype(np.float32)
+    return lo, hi, w_hi
+
+
+def bilinear_resize(x: torch.Tensor, size: Tuple[int, int], *,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of NHWC ``x`` to spatial ``size``: rows, then
+    columns, each ``x[lo]·(1 - w) + x[hi]·w``. Not ``F.interpolate``,
+    which forms its source coordinate from a float scale and can round it
+    otherwise."""
+    h_in, w_in = x.shape[1], x.shape[2]
+    h_out, w_out = size
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    lo_h, hi_h, wh = _linear_weights(h_in, h_out, align_corners)
+    lo_w, hi_w, ww = _linear_weights(w_in, w_out, align_corners)
+
+    def lerp(t: torch.Tensor, dim: int, lo: np.ndarray, hi: np.ndarray,
+             w: np.ndarray) -> torch.Tensor:
+        shape = [1, 1, 1, 1]
+        shape[dim] = -1
+        w_t = torch.from_numpy(w).to(device=t.device, dtype=t.dtype).reshape(shape)
+        return (t.index_select(dim, torch.from_numpy(lo).to(t.device)) * (1 - w_t)
+                + t.index_select(dim, torch.from_numpy(hi).to(t.device)) * w_t)
+
+    return lerp(lerp(x, 1, lo_h, hi_h, wh), 2, lo_w, hi_w, ww)
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Drivers and their configuration (the serving loop in this slice)."""
+"""Serving loop, run configuration, train state and train step."""

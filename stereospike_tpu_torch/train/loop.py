@@ -1,5 +1,6 @@
 """Drivers (counterpart of ``stereospike_tpu/train/loop.py``): the
-streaming-serving loop of this slice and the model/parameter set-up it needs.
+streaming-serving loop, and the model, parameter and loss set-up that it
+and the train step need.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from stereospike_tpu_torch.models import factory as model_factory
 from stereospike_tpu_torch.models.stereospike import StereoSpikeConfig, init_params
+from stereospike_tpu_torch.objectives.losses import TotalLossConfig
 from stereospike_tpu_torch.sources import SyntheticSource
 from stereospike_tpu_torch.streaming import StreamingEvaluator, serving_device
 from stereospike_tpu_torch.train.config import TrainConfig
@@ -43,6 +45,11 @@ def build_model_config(cfg: TrainConfig) -> StereoSpikeConfig:
     if cfg.model != "stereospike":
         kwargs.update(tau=cfg.tau, use_plif=cfg.use_plif)
     return fac(**kwargs)
+
+
+def _loss_config(cfg: TrainConfig) -> TotalLossConfig:
+    return TotalLossConfig(alpha=cfg.loss_alpha, scale_weights=tuple(cfg.scale_weights),
+                           penalize_spikes=cfg.penalize_spikes, beta=cfg.loss_beta)
 
 
 def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
