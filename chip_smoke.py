@@ -33,7 +33,25 @@ order; any failure ends the run with a non-zero exit and no result line:
               at B=2 through the kernels and through the plain fire, whose
               losses must agree exactly and gradients to a stated
               tolerance; a profile of one B=16 step by kernel.
-7. result   — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
+7. multistep — the layer-major training step (``make_train_step(multistep=
+              True)``) at T=5, B=16, bf16 over fp32 master (bench.py's T>1
+              configuration): 2 warm-up and 5 timed steps, exactly 13
+              forward and 13 backward fire launches per step over [T, M];
+              the step-major ``forward_sequence`` (remat) at the same size
+              for comparison; float32 B=2 steps at T=5 and T=12 (fire_bwd's
+              scratch path) through the kernels and through the plain fire,
+              losses equal and gradients within a stated tolerance; a
+              profile of one layer-major step by kernel, with no copy
+              kernel just before or after any fire launch.
+8. eval     — ``make_eval_step`` at B=16, float32, T=1 step-major and T=5
+              layer-major: finite per-sample loss and MDE, 13 forward and
+              0 backward launches per step, its time.
+9. taps     — ``firing_rates_sequence`` at T=5, B=2: 14 densities in
+              [0, 1], identical between the kernel and the plain fire.
+10. ann     — the equivalent ANN (sigmoid), float32, B=16: 2 warm-up and 5
+              timed train steps (finite, falling loss; every BN running
+              statistic moved) and one eval step with the frozen statistics.
+11. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
               last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -42,6 +60,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -58,6 +77,10 @@ TIMING_REPS = 25
 TRAIN_BATCH = 16            # bench.py::measure's default batch
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 HEADLINE_BATCH = 128        # bench.py's headline batch
+MS_T, MS_BATCH = 5, 16      # bench.py's T>1 configuration (BENCH_T, BENCH_BATCH_T)
+LONG_T = 12                 # beyond fire_bwd's register replay (T <= 8)
+EVAL_BATCH = ANN_BATCH = 16
+TAPS_BATCH = 2
 # the backward's Sigmoid tolerance: one ulp of each element in the I/O
 # type, or 4 float32 ulps of the array's largest magnitude, whichever is
 # larger (expf may round otherwise than PyTorch's sigmoid, and 1 - s
@@ -427,33 +450,11 @@ def train_phase(torch, ck, cfg):
 
     # B=16, bf16: the main path of this slice
     state, batch, step = setup(TRAIN_BATCH, torch.bfloat16)
-    for _ in range(TRAIN_WARMUP):
-        step(state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
-    metrics = []
-    ck.multistep_fire.launches = 0
-    ck.multistep_fire_backward.launches = 0
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(TRAIN_STEPS):
-        state, m = step(state, batch)
-        events[i + 1].record()
-        metrics.append(m)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    fwd, bwd = ck.multistep_fire.launches, ck.multistep_fire_backward.launches
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
-    check(metrics, f"B={TRAIN_BATCH}")
-    losses = [float(m["loss"]) for m in metrics]
-    mdes = [float(m["mde"]) for m in metrics]
-    b16 = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "step_ms": wall_s * 1e3 / TRAIN_STEPS,
-           "step_ms_events": step_ms, "frames_per_s": TRAIN_BATCH * TRAIN_STEPS / wall_s,
-           "peak_bytes": peak, "loss": losses, "mde": mdes,
-           "fire_fwd_launches": fwd, "fire_bwd_launches": bwd}
+    b16 = {"batch": TRAIN_BATCH, **_timed_steps(torch, step, state, batch, TRAIN_WARMUP,
+                                                 TRAIN_STEPS, ck)}
+    b16["frames_per_s"] = TRAIN_BATCH / b16["step_ms"] * 1e3
     log(f"[train] B={TRAIN_BATCH} bf16: {json.dumps(b16)}")
+    fwd, bwd = b16["fire_fwd_launches"], b16["fire_bwd_launches"]
     if fwd != 13 * TRAIN_STEPS or bwd != 13 * TRAIN_STEPS:
         raise SystemExit(f"[train] {fwd} forward and {bwd} backward fire launches in "
                          f"{TRAIN_STEPS} steps; expected 13 of each per step")
@@ -478,11 +479,64 @@ def train_phase(torch, ck, cfg):
     torch.cuda.empty_cache()
 
     # kernel path against plain-fire path: float32, B=2, deterministic cuDNN
+    paths = _kernel_vs_plain(torch, ck, lambda fire: setup(2, torch.float32, fire=fire, seed=4),
+                             "[train] float32 B=2")
+    return {"b16": b16, "b128": b128, "paths": paths, "profile_state": profile_state}
+
+
+def train_profile_phase(torch, tr) -> dict:
+    """Device time of one bf16 B=16 training step by kernel: the fire
+    forward and backward shares, and the idle share of the step's wall."""
+    state, batch, step = tr["profile_state"]
+    return _profile(torch, lambda: step(state, batch), f"[train-profile] one bf16 "
+                    f"B={TRAIN_BATCH} step:", 13, 13)
+
+
+def _timed_steps(torch, step, state, batch, warmup: int, steps: int, ck=None) -> dict:
+    """``warmup`` steps, then ``steps`` timed ones: host clock over the
+    steps ending in a synchronize, CUDA events per step, peak memory, the
+    metrics; with ``ck``, the fire counts set to 0 just before the timed
+    steps and read just after."""
+    for _ in range(warmup):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    metrics = []
+    if ck is not None:
+        ck.multistep_fire.launches = 0
+        ck.multistep_fire_backward.launches = 0
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(steps):
+        state, m = step(state, batch)
+        events[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    out = {"steps": steps, "step_ms": wall_s * 1e3 / steps,
+           "step_ms_events": [events[i].elapsed_time(events[i + 1]) for i in range(steps)],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "loss": [float(m["loss"]) for m in metrics], "mde": [float(m["mde"]) for m in metrics]}
+    if ck is not None:
+        out["fire_fwd_launches"] = ck.multistep_fire.launches
+        out["fire_bwd_launches"] = ck.multistep_fire_backward.launches
+    for i, m in enumerate(metrics):
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["mde"])):
+            raise SystemExit(f"step {i}: loss {m['loss']} mde {m['mde']}")
+    return out
+
+
+def _kernel_vs_plain(torch, ck, setup, where: str) -> dict:
+    """One float32 step through the kernels and one through the plain fire,
+    same inputs, deterministic cuDNN: losses equal, each gradient within
+    GRAD_RTOL of the plain one's largest magnitude. The fire counts are
+    restored after: comparison launches do not count."""
     saved = ck.multistep_fire.launches, ck.multistep_fire_backward.launches
     torch.backends.cudnn.deterministic = True
     runs = {}
     for name, fire in (("kernel", ck.multistep_fire), ("plain", ck.multistep_fire_reference)):
-        st, bt, sp = setup(2, torch.float32, fire=fire, seed=4)
+        st, bt, sp = setup(fire)
         _, m = sp(st, bt)
         runs[name] = (float(m["loss"]), float(m["mde"]),
                       {k: p.grad.detach().clone() for k, p in st.params.items()})
@@ -500,32 +554,34 @@ def train_phase(torch, ck, cfg):
              "grad_max_rel": worst, "grad_worst": worst_key,
              "grads_nonzero": sum(float(g.abs().max()) > 0 for g in gp.values()),
              "grads": len(gp)}
-    log(f"[train] float32 B=2 kernel vs plain fire: {json.dumps(paths)} (loss tolerance 0, "
-        f"gradients {GRAD_RTOL} of each tensor's max)")
+    log(f"{where} kernel vs plain fire: {json.dumps(paths)} (loss tolerance 0, gradients "
+        f"{GRAD_RTOL} of each tensor's max)")
     if lk != lp or mk != mp:
-        raise SystemExit("[train] the kernel path's loss differs from the plain fire's")
+        raise SystemExit(f"{where} the kernel path's loss differs from the plain fire's")
     if worst > GRAD_RTOL:
-        raise SystemExit(f"[train] gradient {worst_key} differs by {worst} of its max")
-    return {"b16": b16, "b128": b128, "paths": paths, "profile_state": profile_state}
+        raise SystemExit(f"{where} gradient {worst_key} differs by {worst} of its max")
+    return paths
 
 
-def train_profile_phase(torch, tr) -> dict:
-    """Device time of one bf16 B=16 training step by kernel: the fire
-    forward and backward shares, and the idle share of the step's wall."""
+def _profile(torch, fn, tag: str, n_fwd: int, n_bwd: int) -> dict:
+    """Device time of one call of ``fn`` by kernel (torch.profiler): the
+    fire kernels' launches in order, busy and idle, top kernels. Fails
+    unless it finds ``n_fwd`` and ``n_bwd`` fire launches and no copy
+    kernel just before or after any of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    state, batch, step = tr["profile_state"]
-    step(state, batch)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
     if not dev:
-        log("[train-profile] torch.profiler reported no device time: not measured")
+        log(f"{tag} torch.profiler reported no device time: not measured")
         return {}
     by_name = {}
     for e in dev:
@@ -533,18 +589,212 @@ def train_profile_phase(torch, tr) -> dict:
     busy = sum(by_name.values())
     fwd = [e for e in dev if "fire_fwd_kernel" in e.name]
     bwd = [e for e in dev if "fire_bwd_kernel" in e.name]
-    if len(fwd) != 13 or len(bwd) != 13:
-        raise SystemExit(f"[train-profile] {len(fwd)} forward and {len(bwd)} backward fire "
-                         "kernels in one step; expected 13 of each")
-    fwd_ms = sum(e.time_range.elapsed_us() for e in fwd) / 1e3
-    bwd_ms = sum(e.time_range.elapsed_us() for e in bwd) / 1e3
+    # the kernels just before and after each fire launch: a layout copy
+    # around a site would show here
+    beside = [dev[k].name for i, e in enumerate(dev) if "fire_" in e.name
+              for k in (i - 1, i + 1) if 0 <= k < len(dev) and "fire_" not in dev[k].name]
+    if len(fwd) != n_fwd or len(bwd) != n_bwd:
+        raise SystemExit(f"{tag} {len(fwd)} forward and {len(bwd)} backward fire kernels; "
+                         f"expected {n_fwd} and {n_bwd}")
     out = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-           "fire_fwd_ms": fwd_ms, "fire_bwd_ms": bwd_ms,
-           "fire_fwd_share": fwd_ms / busy, "fire_bwd_share": bwd_ms / busy}
-    log(f"[train-profile] one bf16 B={TRAIN_BATCH} step: {json.dumps(out)}")
+           "fire_fwd_ms": sum(e.time_range.elapsed_us() for e in fwd) / 1e3,
+           "fire_bwd_ms": sum(e.time_range.elapsed_us() for e in bwd) / 1e3,
+           "fire_fwd_us": [e.time_range.elapsed_us() for e in fwd],
+           "fire_bwd_us": [e.time_range.elapsed_us() for e in bwd],
+           "copies_beside_fire": sorted({n[:80] for n in beside if "copy" in n.lower()})}
+    out["fire_fwd_share"] = out["fire_fwd_ms"] / busy
+    out["fire_bwd_share"] = out["fire_bwd_ms"] / busy
+    log(f"{tag} {json.dumps(out)}")
     for name, ms in sorted(by_name.items(), key=lambda r: -r[1])[:15]:
-        log(f"[train-profile]   {ms:8.4f} ms  {name[:110]}")
+        log(f"{tag}   {ms:8.4f} ms  {name[:110]}")
+    if out["copies_beside_fire"]:
+        raise SystemExit(f"{tag} a copy kernel runs beside a fire launch")
     return out
+
+
+def multistep_phase(torch, ck, cfg) -> dict:
+    """Layer-major training at T=5 (the main path of this phase), the
+    step-major path beside it, and the kernel path against the plain fire
+    at T=5 and T=12."""
+    from stereospike_tpu_torch.data.synthetic import synthetic_batch
+    from stereospike_tpu_torch.models.multistep import forward_multistep
+    from stereospike_tpu_torch.models.stereospike import init_params
+    from stereospike_tpu_torch.objectives.losses import TotalLossConfig
+    from stereospike_tpu_torch.train.state import create_train_state, make_optimizer
+    from stereospike_tpu_torch.train.steps import make_train_step
+
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    tx = make_optimizer(2e-4)
+
+    def setup(batch_size, steps, dtype, multistep, fire=ck.multistep_fire, seed=5):
+        state = create_train_state(params, tx, torch.Generator().manual_seed(1))
+        batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(seed),
+                                batch=batch_size, in_hw=cfg.in_hw, T=steps, device="cuda")
+        step = make_train_step(cfg, TotalLossConfig(), tx, compute_dtype=dtype,
+                               multistep=multistep, remat=not multistep, fire_fn=fire)
+        return state, batch, step
+
+    frames = MS_BATCH * MS_T
+    state, batch, step = setup(MS_BATCH, MS_T, torch.bfloat16, True)
+    lm = _timed_steps(torch, step, state, batch, TRAIN_WARMUP, TRAIN_STEPS, ck)
+    lm["frames_per_s"] = frames / lm["step_ms"] * 1e3
+    log(f"[multistep] layer-major T={MS_T} B={MS_BATCH} bf16: {json.dumps(lm)}")
+    if (lm["fire_fwd_launches"] != 13 * TRAIN_STEPS
+            or lm["fire_bwd_launches"] != 13 * TRAIN_STEPS):
+        raise SystemExit(f"[multistep] {lm['fire_fwd_launches']} forward and "
+                         f"{lm['fire_bwd_launches']} backward fire launches in {TRAIN_STEPS} "
+                         "layer-major steps; expected 13 of each per step")
+
+    # the [T, M] of each site's launch, from one no-grad forward
+    shapes = []
+
+    def spy(x, *args, **kwargs):
+        shapes.append(tuple(x.shape))
+        return ck.multistep_fire(x, *args, **kwargs)
+
+    saved = ck.multistep_fire.launches
+    with torch.no_grad():
+        forward_multistep({k: v.to(torch.bfloat16) for k, v in state.params.items()},
+                          batch["chunks"].to(torch.bfloat16), cfg, fire_fn=spy)
+    ck.multistep_fire.launches = saved
+    if len(shapes) != 13 or any(t != MS_T for t, _ in shapes):
+        raise SystemExit(f"[multistep] fire calls over {shapes}")
+    lm["fire_shapes"] = shapes
+    log(f"[multistep] [T, M] of the 13 launches: {shapes}")
+    prof = _profile(torch, lambda: step(state, batch), f"[multistep-profile] one bf16 "
+                    f"layer-major T={MS_T} B={MS_BATCH} step:", 13, 13)
+    del state, batch, step
+    torch.cuda.empty_cache()
+
+    state, batch, step = setup(MS_BATCH, MS_T, torch.bfloat16, False)
+    sm = _timed_steps(torch, step, state, batch, TRAIN_WARMUP, TRAIN_STEPS, ck)
+    sm["frames_per_s"] = frames / sm["step_ms"] * 1e3
+    log(f"[multistep] step-major (remat) T={MS_T} B={MS_BATCH} bf16: {json.dumps(sm)}")
+    if sm["fire_bwd_launches"] != 13 * MS_T * TRAIN_STEPS:
+        raise SystemExit(f"[multistep] step-major: {sm['fire_bwd_launches']} backward launches")
+    del state, batch, step
+    torch.cuda.empty_cache()
+
+    paths = {steps: _kernel_vs_plain(
+        torch, ck, lambda fire, steps=steps: setup(2, steps, torch.float32, True, fire, seed=6),
+        f"[multistep] float32 B=2 T={steps} layer-major") for steps in (MS_T, LONG_T)}
+    return {"layer_major": lm, "step_major": sm, "profile": prof, "paths": paths}
+
+
+def eval_phase(torch, ck, cfg) -> dict:
+    """``make_eval_step`` at B=16, float32: T=1 step-major, T=5 layer-major."""
+    from stereospike_tpu_torch.data.synthetic import synthetic_batch
+    from stereospike_tpu_torch.models.stereospike import init_params
+    from stereospike_tpu_torch.objectives.losses import TotalLossConfig
+    from stereospike_tpu_torch.train.steps import make_eval_step
+
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    out = {}
+    for steps, multistep in ((1, False), (MS_T, True)):
+        batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(8), batch=EVAL_BATCH,
+                                in_hw=cfg.in_hw, T=steps, device="cuda")
+        step = make_eval_step(cfg, TotalLossConfig(), multistep=multistep)
+        step(params, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.multistep_fire.launches = 0
+        ck.multistep_fire_backward.launches = 0
+        t0 = time.perf_counter()
+        res = step(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd, bwd = ck.multistep_fire.launches, ck.multistep_fire_backward.launches
+        row = {"T": steps, "multistep": multistep, "batch": EVAL_BATCH, "step_ms": ms,
+               "frames_per_s": EVAL_BATCH * steps / ms * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(), "loss": float(res["loss"]),
+               "mde": float(res["mde"]), "fire_fwd_launches": fwd, "fire_bwd_launches": bwd}
+        log(f"[eval] {json.dumps(row)}")
+        if fwd != 13 or bwd != 0:
+            raise SystemExit(f"[eval] T={steps}: {fwd} forward and {bwd} backward launches; "
+                             "expected 13 and 0")
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["mde"])
+                and tuple(res["depth"].shape) == (EVAL_BATCH, *cfg.in_hw, 1)):
+            raise SystemExit(f"[eval] T={steps}: loss {row['loss']}, mde {row['mde']}, depth "
+                             f"{tuple(res['depth'].shape)}")
+        out[f"T{steps}"] = row
+    return out
+
+
+def taps_phase(torch, ck, cfg) -> dict:
+    """The 14 firing-rate densities at T=5, kernel fire against plain fire."""
+    from stereospike_tpu_torch.data.synthetic import synthetic_batch
+    from stereospike_tpu_torch.models.stereospike import (
+        TAP_NAMES,
+        firing_rates_sequence,
+        init_params,
+    )
+
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    frames = synthetic_batch(torch.Generator(device="cuda").manual_seed(9), batch=TAPS_BATCH,
+                             in_hw=cfg.in_hw, T=MS_T, device="cuda")["chunks"]
+    torch.backends.cudnn.deterministic = True
+    ck.multistep_fire.launches = 0
+    ck.multistep_fire_backward.launches = 0
+    dens = {k: float(v) for k, v in firing_rates_sequence(params, frames, cfg).items()}
+    fwd, bwd = ck.multistep_fire.launches, ck.multistep_fire_backward.launches
+    plain = {k: float(v) for k, v in firing_rates_sequence(
+        params, frames, cfg, fire_fn=ck.multistep_fire_reference).items()}
+    torch.backends.cudnn.deterministic = False
+    log(f"[taps] T={MS_T} B={TAPS_BATCH}: {json.dumps(dens)}; fire launches {fwd} forward, "
+        f"{bwd} backward")
+    if list(dens) != list(TAP_NAMES) or not all(0.0 <= v <= 1.0 for v in dens.values()):
+        raise SystemExit(f"[taps] densities {dens}")
+    if dens != plain:
+        raise SystemExit(f"[taps] kernel densities differ from the plain fire's: {plain}")
+    if fwd != 13 * MS_T or bwd != 0:
+        raise SystemExit(f"[taps] {fwd} forward and {bwd} backward launches; expected "
+                         f"{13 * MS_T} and 0")
+    return {"densities": dens, "fire_fwd_launches": fwd}
+
+
+def ann_phase(torch, cfg) -> dict:
+    """The equivalent ANN (sigmoid) at the flagship's width, float32, B=16."""
+    from stereospike_tpu_torch.data.synthetic import synthetic_batch
+    from stereospike_tpu_torch.models.ann import AnnConfig, init_ann_params, init_ann_state
+    from stereospike_tpu_torch.objectives.losses import TotalLossConfig
+    from stereospike_tpu_torch.train.ann_steps import (
+        create_ann_train_state,
+        make_ann_eval_step,
+        make_ann_train_step,
+    )
+    from stereospike_tpu_torch.train.state import make_optimizer
+
+    acfg = AnnConfig(in_channels=cfg.in_channels, base_channels=cfg.base_channels,
+                     in_hw=cfg.in_hw, activation="sigmoid")
+    bn0 = init_ann_state(acfg, device="cuda")
+    tx = make_optimizer(2e-4)
+    state = create_ann_train_state(init_ann_params(torch.Generator().manual_seed(0), acfg,
+                                                   device="cuda"), bn0, tx)
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(10), batch=ANN_BATCH,
+                            in_hw=cfg.in_hw, T=1, device="cuda")
+    step = make_ann_train_step(acfg, TotalLossConfig(), tx)
+    first = float(step(state, batch)[1]["loss"])
+    row = _timed_steps(torch, step, state, batch, TRAIN_WARMUP - 1, TRAIN_STEPS)
+    row["frames_per_s"] = ANN_BATCH / row["step_ms"] * 1e3
+    row["first_loss"] = first
+    moved = sum(not torch.equal(state.bn_state[k], bn0[k]) for k in bn0)
+    row["bn_statistics_moved"] = f"{moved} of {len(bn0)}"
+    ev_fn = make_ann_eval_step(acfg, TotalLossConfig())
+    ev_fn(state.params, state.bn_state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = ev_fn(state.params, state.bn_state, batch)
+    torch.cuda.synchronize()
+    row["eval_ms"] = (time.perf_counter() - t0) * 1e3
+    row["eval_loss"], row["eval_mde"] = float(ev["loss"]), float(ev["mde"])
+    log(f"[ann] sigmoid float32 B={ANN_BATCH}: {json.dumps(row)}")
+    if not row["loss"][-1] < first:
+        raise SystemExit(f"[ann] the loss did not fall: {first} -> {row['loss']}")
+    if moved != len(bn0):
+        raise SystemExit(f"[ann] {moved} of {len(bn0)} BN running statistics moved")
+    if not (math.isfinite(row["eval_loss"]) and math.isfinite(row["eval_mde"])):
+        raise SystemExit(f"[ann] eval loss {row['eval_loss']} mde {row['eval_mde']}")
+    return row
 
 
 def main() -> int:
@@ -575,6 +825,21 @@ def main() -> int:
     tprof = train_profile_phase(torch, tr)
     del tr["profile_state"]
     log(json.dumps({"train": {**tr, "profile": tprof}}))
+    torch.cuda.empty_cache()
+    ms = multistep_phase(torch, ck, cfg)
+    ev = eval_phase(torch, ck, cfg)
+    taps = taps_phase(torch, ck, cfg)
+    ann = ann_phase(torch, cfg)
+    log(json.dumps({"multistep": ms, "eval": ev, "taps": taps, "ann": ann}))
+    # the fire kernels' bound on the layer-major bf16 step: every site's
+    # [T, M] read and written once; forward x, v0 in and spikes, v_T out,
+    # (2T+2)·M values; backward x, v0, gs in and gx, gv0 out, (3T+2)·M
+    # values (the final membranes take no gradient, so no gv_T). The
+    # backward really moves (4T+2)·M: its replay reads x once more.
+    m_total = MS_BATCH * sum(m for _, m in site_sizes(cfg))
+    lm_fwd_bound = (2 * MS_T + 2) * m_total * 2 / HBM_BYTES_PER_S * 1e3
+    lm_bwd_bound = (3 * MS_T + 2) * m_total * 2 / HBM_BYTES_PER_S * 1e3
+    lm_bwd_moved = (4 * MS_T + 2) * m_total * 2 / HBM_BYTES_PER_S * 1e3
 
     sites = kern["sites"]
     kernels = {"kernels": [{
@@ -599,6 +864,11 @@ def main() -> int:
         # the 13 launches of one bf16 B=16 training step (torch.profiler)
         "train_launches": tr["b16"]["fire_fwd_launches"],
         "train_path_ms": tprof.get("fire_fwd_ms"),
+        # the 13 launches over [5, M] of one bf16 layer-major T=5 B=16 step
+        "layer_major_launches": ms["layer_major"]["fire_fwd_launches"],
+        "layer_major_path_ms": ms["profile"].get("fire_fwd_ms"),
+        "layer_major_bound_ms": lm_fwd_bound,
+        "eval_launches": [ev["T1"]["fire_fwd_launches"], ev[f"T{MS_T}"]["fire_fwd_launches"]],
         "sites": sites,
     }, {
         "name": "fire_bwd",
@@ -619,6 +889,10 @@ def main() -> int:
         "sigmoid_max_ulps": bwd["sigmoid_ulps"],
         "gleak_max_rel": bwd["gleak_rel"],
         "train_path_ms": tprof.get("fire_bwd_ms"),
+        "layer_major_launches": ms["layer_major"]["fire_bwd_launches"],
+        "layer_major_path_ms": ms["profile"].get("fire_bwd_ms"),
+        "layer_major_bound_ms": lm_bwd_bound,
+        "layer_major_moved_bytes_ms": lm_bwd_moved,
         "sites": bwd["sites"],
     }]}
     print(json.dumps(kernels), flush=True)

@@ -8,6 +8,11 @@ parameter tree (HWIO weights, ``{'bottom': {'w'}, 'sew1': {'conv1': ...},
 a renaming, both ways (:func:`params_from_jax`, :func:`params_to_jax`).
 Arrays come in and go out as numpy, so neither package imports the other.
 
+The equivalent ANN's bridge (:func:`ann_params_from_jax`,
+:func:`ann_params_to_jax`) maps the JAX ``(params, bn_state)`` trees
+(conv ``{'w', 'b'}``, BN ``{'gamma', 'beta'}`` and ``{'mean', 'var'}``) to
+the port's two flat dicts under the ``.pth`` keys.
+
 State: the JAX package keeps NHWC membranes, with the level-0 sites
 ``bottom`` and ``deconv1`` in space-to-depth layout ``[B, H/2, W/2, 4C]``
 when ``cfg.use_s2d_level0``; the port keeps NCHW everywhere.
@@ -15,11 +20,12 @@ when ``cfg.use_s2d_level0``; the port keeps NCHW everywhere.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
+from stereospike_tpu_torch.models.ann import ANN_BN_SITES, ANN_CONV_SITES
 from stereospike_tpu_torch.models.stereospike import (
     SITE_KEYS,
     SITE_LEVEL,
@@ -34,6 +40,11 @@ _JAX_PATHS.update({"sew1_a": ("sew1", "conv1"), "sew1_b": ("sew1", "conv2"),
                    "sew2_a": ("sew2", "conv1"), "sew2_b": ("sew2", "conv2")})
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype on ``device`` (a copy)."""
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
 def _leaf(tree: Mapping, path) -> Mapping:
     for p in path:
         tree = tree[p]
@@ -41,7 +52,7 @@ def _leaf(tree: Mapping, path) -> Mapping:
 
 
 def params_from_jax(tree: Mapping, cfg: StereoSpikeConfig, *,
-                    device: Union[str, torch.device] = "cpu") -> Dict[str, torch.Tensor]:
+                    device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) → the port's parameter dict, in the
     leaves' own dtype, on ``device``."""
     out: Dict[str, np.ndarray] = {}
@@ -55,7 +66,7 @@ def params_from_jax(tree: Mapping, cfg: StereoSpikeConfig, *,
             out[scale_key] = np.asarray(leaf["scale"]).reshape(1)
         if plif_key is not None and site in tree.get("plif", {}):
             out[plif_key] = np.asarray(tree["plif"][site]).reshape(())
-    return {k: torch.from_numpy(np.array(v, order="C")).to(device) for k, v in out.items()}
+    return {k: _tensor(v, device) for k, v in out.items()}
 
 
 def params_to_jax(params: Mapping[str, torch.Tensor],
@@ -84,7 +95,7 @@ def _s2d_site(cfg: StereoSpikeConfig, site: str) -> bool:
 
 
 def state_from_jax(state: Mapping, cfg: StereoSpikeConfig, *,
-                   device: Union[str, torch.device] = "cpu") -> Dict[str, torch.Tensor]:
+                   device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
     """JAX membrane state (numpy leaves) → the port's NCHW state."""
     out = {}
     for site, v in state.items():
@@ -105,3 +116,57 @@ def state_to_jax(state: Mapping[str, torch.Tensor],
             t = space_to_depth(t)
         out[site] = t.contiguous().numpy()
     return out
+
+
+# JAX names of the BN leaves → the port's
+_BN_PARAM_NAMES = {"gamma": "weight", "beta": "bias"}
+_BN_STATE_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def ann_params_from_jax(params_tree: Mapping, bn_state_tree: Mapping, *,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """JAX ``(params, bn_state)`` trees of the equivalent ANN (numpy leaves)
+    → the port's ``(params, bn_state)`` dicts, in the leaves' own dtype, on
+    ``device``."""
+    params: Dict[str, torch.Tensor] = {}
+    for path, stem in ANN_CONV_SITES:
+        leaf = _leaf(params_tree, path)
+        params[f"{stem}.weight"] = _tensor(np.asarray(leaf["w"]).transpose(3, 2, 0, 1), device)
+        if "b" in leaf:
+            params[f"{stem}.bias"] = _tensor(leaf["b"], device)
+    bn_state: Dict[str, torch.Tensor] = {}
+    for path, stem in ANN_BN_SITES:
+        for theirs, ours in _BN_PARAM_NAMES.items():
+            params[f"{stem}.{ours}"] = _tensor(_leaf(params_tree, path)[theirs], device)
+        for theirs, ours in _BN_STATE_NAMES.items():
+            bn_state[f"{stem}.{ours}"] = _tensor(_leaf(bn_state_tree, path)[theirs], device)
+    return params, bn_state
+
+
+def _put(tree: Dict, path, value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def ann_params_to_jax(params: Mapping[str, torch.Tensor], bn_state: Mapping[str, torch.Tensor]
+                      ) -> Tuple[Dict[str, object], Dict[str, object]]:
+    """The port's ANN ``(params, bn_state)`` → the JAX trees with numpy
+    leaves (the inverse of :func:`ann_params_from_jax`)."""
+    def np_(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    tree: Dict[str, object] = {}
+    for path, stem in ANN_CONV_SITES:
+        leaf = {"w": np.ascontiguousarray(np_(params[f"{stem}.weight"]).transpose(2, 3, 1, 0))}
+        if f"{stem}.bias" in params:
+            leaf["b"] = np_(params[f"{stem}.bias"])
+        _put(tree, path, leaf)
+    state_tree: Dict[str, object] = {}
+    for path, stem in ANN_BN_SITES:
+        _put(tree, path, {theirs: np_(params[f"{stem}.{ours}"])
+                          for theirs, ours in _BN_PARAM_NAMES.items()})
+        _put(state_tree, path, {theirs: np_(bn_state[f"{stem}.{ours}"])
+                                for theirs, ours in _BN_STATE_NAMES.items()})
+    return tree, state_tree

@@ -16,7 +16,10 @@ pool ``Ineurons``. Every spiking site goes through the fused fire kernel
 (:func:`stereospike_tpu_torch.snn.cuda_kernels.multistep_fire`) at T = 1,
 whose backward (the site's surrogate derivative, and the PLIF leak's
 gradient through ``sigmoid(w)`` to ``w``) is the hand-written backward
-kernel when a gradient is wanted.
+kernel when a gradient is wanted. ``forward(..., return_taps=True)`` also
+returns the 14 firing-rate taps (:data:`TAP_NAMES`), which
+:func:`firing_rates` and :func:`firing_rates_sequence` reduce to spike
+densities.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from stereospike_tpu_torch.nn.blocks import conv_scale, sew_block_apply, upsample_conv_scale
+from stereospike_tpu_torch.nn.layers import conv_init
 from stereospike_tpu_torch.snn.cuda_kernels import multistep_fire
 from stereospike_tpu_torch.snn.neurons import integrator_step, plif_w_from_tau
 from stereospike_tpu_torch.snn.surrogate import resolve_alpha
@@ -63,6 +68,15 @@ SITE_KEYS: Dict[str, Tuple[str, str, Optional[str]]] = {
     "pred1": ("predict_depth1.0.up.1", "predict_depth1.1.scale_value", None),
 }
 SPIKING_SITES = tuple(s for s in SITE_KEYS if not s.startswith("pred"))
+# The 14 firing-rate taps the reference measures (SNN_models.py:197-245).
+# Its dict declares a 15th key, 'out_combined', that is never assigned, so
+# it is left out rather than reported as an always-zero density.
+TAP_NAMES = (
+    "out_bottom", "out_conv1", "out_conv2", "out_conv3", "out_conv4",
+    "out_rconv",
+    "out_deconv4", "out_add4", "out_deconv3", "out_add3",
+    "out_deconv2", "out_add2", "out_deconv1", "out_add1",
+)
 # level of each spiking site's membrane (0 = input resolution)
 SITE_LEVEL = {"bottom": 0, "conv1": 1, "conv2": 2, "conv3": 3, "conv4": 4,
               "sew1_a": 4, "sew1_b": 4, "sew2_a": 4, "sew2_b": 4,
@@ -180,12 +194,10 @@ def init_params(generator: torch.Generator, cfg: StereoSpikeConfig, *,
     params: Params = {}
     for site, (c_in, c_out, k) in _site_shapes(cfg).items():
         stem, scale_key, plif_key = SITE_KEYS[site]
-        bound = 1.0 / math.sqrt(c_in * k * k)
-        params[f"{stem}.weight"] = torch.empty(c_out, c_in, k, k, dtype=dtype).uniform_(
-            -bound, bound, generator=generator)
-        if site.startswith("pred"):
-            params[f"{stem}.bias"] = torch.empty(c_out, dtype=dtype).uniform_(
-                -bound, bound, generator=generator)
+        conv = conv_init(generator, k, c_in, c_out, bias=site.startswith("pred"), dtype=dtype)
+        params[f"{stem}.weight"] = conv["w"]
+        if "b" in conv:
+            params[f"{stem}.bias"] = conv["b"]
         if cfg.learnable_scale is not None:
             params[scale_key] = torch.full((1,), cfg.learnable_scale, dtype=dtype)
         if plif_key is not None and cfg.site_neuron(site) == "plif":
@@ -232,20 +244,29 @@ def _leak(params: Params, cfg: StereoSpikeConfig, site: str,
     raise ValueError(f"unknown neuron '{kind}'")
 
 
-def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
-            state: Optional[State] = None, *, fire_fn: FireFn = multistep_fire):
-    """One timestep. ``frame``: [B, H, W, C_in] (NHWC, as in the JAX package).
-
-    Returns ``(depths, spikes, new_state)``: ``depths`` full-scale first,
-    each [B, H, W, 1]; ``spikes`` = [out_rconv, out_add4, ..., out_add1] as
-    NHWC views; ``new_state`` the membrane state after this step.
-    ``fire_fn`` is the fused fire (the kernel wrapper; its plain version
-    for a comparison run). Gradients flow to ``params`` and ``frame``
-    through the fire's surrogate when grad mode is on."""
+def check_fire_config(cfg: StereoSpikeConfig) -> None:
+    """Refuse what the fused fire kernels do not compute: they always
+    detach the reset and reset hard to 0."""
     if not cfg.detach_reset or cfg.v_reset != 0.0:
         raise NotImplementedError(
             "the fused fire kernel implements the detached hard reset to 0 "
             f"only (detach_reset={cfg.detach_reset}, v_reset={cfg.v_reset!r})")
+
+
+def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
+            state: Optional[State] = None, *, return_taps: bool = False,
+            fire_fn: FireFn = multistep_fire):
+    """One timestep. ``frame``: [B, H, W, C_in] (NHWC, as in the JAX package).
+
+    Returns ``(depths, spikes, new_state)``, and ``taps`` after them when
+    ``return_taps``: ``depths`` full-scale first, each [B, H, W, 1];
+    ``spikes`` = [out_rconv, out_add4, ..., out_add1] as NHWC views;
+    ``new_state`` the membrane state after this step; ``taps`` the
+    :data:`TAP_NAMES` tensors, NCHW (a density does not depend on the
+    layout). ``fire_fn`` is the fused fire (the kernel wrapper; its plain
+    version for a comparison run). Gradients flow to ``params`` and
+    ``frame`` through the fire's surrogate when grad mode is on."""
+    check_fire_config(cfg)
     x_in = frame.permute(0, 3, 1, 2).contiguous()
     if state is None:
         state = init_state(cfg, frame.shape[0], frame.dtype, device=frame.device)
@@ -262,10 +283,16 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
 
     ms = cfg.multiply_factor if not cfg.learnable_multiply else 1.0
     sizes = cfg.sizes
+    taps: Dict[str, torch.Tensor] = {}
+
+    def tap(name: str, x: torch.Tensor) -> torch.Tensor:
+        if return_taps:
+            taps[name] = x
+        return x
 
     def enc(site: str, x: torch.Tensor, stride: int) -> torch.Tensor:
-        return fire(site, conv_scale(x, _block(params, site), stride=stride,
-                                     padding=2, static_scale=ms))
+        return tap(f"out_{site}", fire(site, conv_scale(x, _block(params, site), stride=stride,
+                                                        padding=2, static_scale=ms)))
 
     out_bottom = enc("bottom", x_in, 1)
     out_conv1 = enc("conv1", out_bottom, 2)
@@ -276,9 +303,10 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     out = sew_block_apply(_block(params, "sew1_a"), _block(params, "sew1_b"), out_conv4,
                           lambda x: fire("sew1_a", x), lambda x: fire("sew1_b", x),
                           static_scale=ms, connect_fn=cfg.connect_fn)
-    out_rconv = sew_block_apply(_block(params, "sew2_a"), _block(params, "sew2_b"), out,
-                                lambda x: fire("sew2_a", x), lambda x: fire("sew2_b", x),
-                                static_scale=ms, connect_fn=cfg.connect_fn)
+    out_rconv = tap("out_rconv", sew_block_apply(
+        _block(params, "sew2_a"), _block(params, "sew2_b"), out,
+        lambda x: fire("sew2_a", x), lambda x: fire("sew2_b", x),
+        static_scale=ms, connect_fn=cfg.connect_fn))
 
     v_depth = state["Ineurons"]
     skips = (out_bottom, out_conv1, out_conv2, out_conv3)
@@ -287,11 +315,11 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     x = out_rconv
     for scale in (4, 3, 2, 1):
         site = f"deconv{scale}"
-        x = fire(site, upsample_conv_scale(x, _block(params, site),
-                                           target_hw=sizes[scale - 1], static_scale=ms))
+        x = tap(f"out_{site}", fire(site, upsample_conv_scale(
+            x, _block(params, site), target_hw=sizes[scale - 1], static_scale=ms)))
         if cfg.use_skips:
             x = x + skips[scale - 1]
-        spikes.append(x)
+        spikes.append(tap(f"out_add{scale}", x))
         if scale in cfg.heads:
             charge = upsample_conv_scale(x, _block(params, f"pred{scale}"),
                                          target_hw=sizes[0], static_scale=ms)
@@ -300,7 +328,10 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     new_state["Ineurons"] = v_depth
     b, _, h, w = v_depth.shape
     depths = [depths_by_scale[s].reshape(b, h, w, 1) for s in sorted(cfg.heads)]
-    return depths, [s.permute(0, 2, 3, 1) for s in spikes], new_state
+    spikes = [s.permute(0, 2, 3, 1) for s in spikes]
+    if return_taps:
+        return depths, spikes, new_state, taps
+    return depths, spikes, new_state
 
 
 def forward_sequence(params: Params, frames: torch.Tensor, cfg: StereoSpikeConfig,
@@ -327,3 +358,54 @@ def forward_sequence(params: Params, frames: torch.Tensor, cfg: StereoSpikeConfi
         else:
             state = step(state, frames[:, t])
     return forward(params, frames[:, -1], cfg, state, fire_fn=fire_fn)
+
+
+def _f32_reciprocal(n: int) -> float:
+    """1/n as float32 arithmetic forms it. Density ratios and means are
+    taken as the count times this, as XLA lowers a division by a constant,
+    so that they agree with the JAX package's bit for bit."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+def _densities(taps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """count_nonzero/size of each tap, as float32 device scalars."""
+    return {name: torch.count_nonzero(t).to(torch.float32) * _f32_reciprocal(t.numel())
+            for name, t in taps.items()}
+
+
+def firing_rates(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
+                 state: Optional[State] = None, *,
+                 fire_fn: FireFn = multistep_fire) -> Dict[str, torch.Tensor]:
+    """Per-tap spike density count_nonzero/size of one step (the reference
+    ``calculate_firing_rates``), as float32 device scalars. Runs without a
+    graph: only the forward fire kernel launches."""
+    with torch.no_grad():
+        taps = forward(params, frame, cfg, state, return_taps=True, fire_fn=fire_fn)[3]
+        return _densities(taps)
+
+
+def firing_rates_sequence(params: Params, frames: torch.Tensor, cfg: StereoSpikeConfig,
+                          state: Optional[State] = None, *,
+                          fire_fn: FireFn = multistep_fire) -> Dict[str, torch.Tensor]:
+    """Per-tap densities over a whole [B, T, H, W, C] sequence: membranes
+    carry across the T steps as in :func:`forward_sequence`, and each tap's
+    density is the mean over the T steps of the per-step density. At T=1
+    it equals :func:`firing_rates` on ``frames[:, 0]``. Integer (uint8
+    count) frames are cast to float32 first."""
+    if not frames.is_floating_point():
+        frames = frames.to(torch.float32)
+    if state is None:
+        state = init_state(cfg, frames.shape[0], frames.dtype, device=frames.device)
+    per_step: Dict[str, List[torch.Tensor]] = {name: [] for name in TAP_NAMES}
+    with torch.no_grad():
+        for t in range(frames.shape[1]):
+            _, _, state, taps = forward(params, frames[:, t], cfg, state, return_taps=True,
+                                        fire_fn=fire_fn)
+            for name, d in _densities(taps).items():
+                per_step[name].append(d)
+    inv = _f32_reciprocal(frames.shape[1])
+    return {name: torch.stack(d).sum() * inv for name, d in per_step.items()}
+
+
+def count_params(params: Params) -> int:
+    return sum(p.numel() for p in params.values())

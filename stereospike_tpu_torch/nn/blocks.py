@@ -4,6 +4,8 @@
 - upsample blk = NNConvUpsampling → MultiplyBy → neuron
 - SEW residual = [conv3 → ×c → fire] ×2, connected with the identity
 - ``connect``  = spike-element-wise combine (ADD/MUL/AND/OR/NMUL)
+- ANN blocks   = BatchNorm2d with running statistics, and the equivalent
+  ANN's residual block [conv3 → activation → BN] ×2 + identity
 
 MultiplyBy is a scalar scale against vanishing spikes: a static config
 constant, or a learnable scalar stored under the block's ``scale`` entry.
@@ -12,11 +14,12 @@ Parameters are passed as small dicts ``{"w": OIHW [, "b"] [, "scale"]}``.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
-from stereospike_tpu_torch.nn.layers import conv2d, upsample_conv
+from stereospike_tpu_torch.nn.layers import conv2d, conv_init, upsample_conv
 
 Params = Mapping[str, torch.Tensor]
 
@@ -66,3 +69,66 @@ def sew_block_apply(conv1: Params, conv2: Params, x: torch.Tensor,
     out = fire1(conv_scale(x, conv1, stride=1, padding=1, static_scale=static_scale))
     out = fire2(conv_scale(out, conv2, stride=1, padding=1, static_scale=static_scale))
     return connect(out, x, connect_fn)
+
+
+# --------------------------------------------------------------- ANN blocks
+Device = Union[str, torch.device]
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
+
+def init_batchnorm(channels: int, *, device: Device = "cuda",
+                   dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """BatchNorm2d's affine parameters: weight 1, bias 0."""
+    return {"weight": torch.ones(channels, dtype=dtype, device=device),
+            "bias": torch.zeros(channels, dtype=dtype, device=device)}
+
+
+def init_bn_state(channels: int, *, device: Device = "cuda",
+                  dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """BatchNorm2d's running statistics: mean 0, variance 1."""
+    return {"running_mean": torch.zeros(channels, dtype=dtype, device=device),
+            "running_var": torch.ones(channels, dtype=dtype, device=device)}
+
+
+def batchnorm_apply(params: Params, x: torch.Tensor, *, state: Params, train: bool,
+                    momentum: float = 0.1, eps: float = 1e-5
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BatchNorm2d over NCHW ``x``, torch semantics: in training the biased
+    batch variance normalizes and the running variance takes the unbiased
+    one, each running statistic moving by ``momentum``; in eval the running
+    statistics normalize. Returns ``(y, new_state)``; ``state`` itself is
+    left as it was."""
+    new_state = ({k: v.detach().clone() for k, v in state.items()} if train
+                 else dict(state))
+    y = F.batch_norm(x, new_state["running_mean"], new_state["running_var"],
+                     params["weight"], params["bias"], training=train,
+                     momentum=momentum, eps=eps)
+    return y, new_state
+
+
+def init_ann_res_block(generator: torch.Generator, channels: int, *, bias: bool = True,
+                       device: Device = "cuda", dtype: torch.dtype = torch.float32
+                       ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"conv1": {"w"[, "b"]}, "bn1": {...}, "conv2": ..., "bn2": ...}``,
+    3×3 convs drawn from ``generator``."""
+    out = {}
+    for i in (1, 2):
+        conv = conv_init(generator, 3, channels, channels, bias=bias, dtype=dtype)
+        out[f"conv{i}"] = {k: v.to(device) for k, v in conv.items()}
+        out[f"bn{i}"] = init_batchnorm(channels, device=device, dtype=dtype)
+    return out
+
+
+def ann_res_block_apply(params: Mapping[str, Params], x: torch.Tensor, act: Activation, *,
+                        bn_state: Mapping[str, Params], train: bool, connect_fn: str = "ADD"
+                        ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+    """ANN residual block: [conv3 → act → BN] ×2, then connect with the
+    identity. Returns ``(y, {"bn1": ..., "bn2": ...})``, the new BN state."""
+    out = x
+    new_state = {}
+    for i in (1, 2):
+        conv = params[f"conv{i}"]
+        out = conv2d(out, conv["w"], conv.get("b"), stride=1, padding=1)
+        out, new_state[f"bn{i}"] = batchnorm_apply(params[f"bn{i}"], act(out),
+                                                   state=bn_state[f"bn{i}"], train=train)
+    return connect(out, x, connect_fn), new_state

@@ -11,7 +11,8 @@ same function up to float reassociation.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +32,19 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     if x.dtype == torch.float32 and x.is_cuda:
         torch.backends.cudnn.allow_tf32 = False
     return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def conv_init(generator: torch.Generator, kernel_size: int, c_in: int, c_out: int, *,
+              bias: bool = False, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """Torch-default conv init, U(-1/√fan_in, 1/√fan_in) for the weight and
+    the bias, drawn on the CPU from ``generator`` (weight first):
+    ``{"w": OIHW [, "b": [c_out]]}``."""
+    bound = 1.0 / math.sqrt(c_in * kernel_size * kernel_size)
+    out = {"w": torch.empty(c_out, c_in, kernel_size, kernel_size, dtype=dtype).uniform_(
+        -bound, bound, generator=generator)}
+    if bias:
+        out["b"] = torch.empty(c_out, dtype=dtype).uniform_(-bound, bound, generator=generator)
+    return out
 
 
 @functools.lru_cache(maxsize=64)

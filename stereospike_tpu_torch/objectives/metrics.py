@@ -11,10 +11,26 @@ Constants: DISPARITY_MULTIPLIER = 7.0, FOCAL_LENGTH_X_BASELINE
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 DISPARITY_MULTIPLIER = 7.0
 FOCAL_LENGTH_X_BASELINE = {"indoor_flying": 19.941772}
+
+
+def valid_mask_from_nan(groundtruth: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split NaN-encoded GT (the reference's convention) into (values with
+    0 at invalid pixels, boolean valid mask)."""
+    mask = ~torch.isnan(groundtruth)
+    return torch.where(mask, groundtruth, torch.zeros_like(groundtruth)), mask
+
+
+def mask_invalid(predicted: torch.Tensor, groundtruth: torch.Tensor,
+                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero both maps at invalid pixels (the reference's ``mask_dead_pixels``)."""
+    return (torch.where(mask, predicted, torch.zeros_like(predicted)),
+            torch.where(mask, groundtruth, torch.zeros_like(groundtruth)))
 
 
 def depth_to_disparity(depth: torch.Tensor, scenario: str = "indoor_flying") -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Run configuration (counterpart of ``stereospike_tpu/train/config.py``).
 
 The fields of the JAX package's ``TrainConfig`` that the serving loop and
-the train step read, with the same names and defaults, so a CLI flag means
-the same in both packages.
+the train and eval steps read, with the same names and defaults, so a CLI
+flag means the same in both packages.
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ class TrainConfig:
     nfpdm: int = 1                    # frames per depth map (dt = 50/nfpdm ms)
     n_inference: int = 1              # chunks per sample
     n_timesteps: int = 1              # steps the chunks are spread over
+    # layer-major forward over the n_timesteps steps (models/multistep.py):
+    # convs over B·T merged samples, one fire launch per site and step
+    multistep: bool = False
     batch_size: int = 1
     learn_on: str = "LIN"             # LIN | LOG | DISP
 

@@ -1,6 +1,6 @@
 """Drivers (counterpart of ``stereospike_tpu/train/loop.py``): the
-streaming-serving loop, and the model, parameter and loss set-up that it
-and the train step need.
+streaming-serving loop, and the model (SNN or equivalent ANN), parameter
+and loss set-up that it and the steps need.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from stereospike_tpu_torch.models import factory as model_factory
+from stereospike_tpu_torch.models.ann import AnnConfig
 from stereospike_tpu_torch.models.stereospike import StereoSpikeConfig, init_params
 from stereospike_tpu_torch.objectives.losses import TotalLossConfig
 from stereospike_tpu_torch.sources import SyntheticSource
@@ -20,6 +21,20 @@ from stereospike_tpu_torch.train.config import TrainConfig
 from stereospike_tpu_torch.utils.logging import MetricsLogger
 
 Device = Union[str, torch.device]
+
+
+# equivalent-ANN model names → activation
+ANN_MODELS = {
+    "ann": "sigmoid",
+    "ann_sigmoid": "sigmoid",
+    "ann_tanh": "tanh",
+    "ann_leaky_relu": "leaky_relu",
+    "ann_relu": "relu",
+}
+
+
+def is_ann_model(name: str) -> bool:
+    return name in ANN_MODELS
 
 
 def _in_channels(cfg: TrainConfig) -> int:
@@ -45,6 +60,18 @@ def build_model_config(cfg: TrainConfig) -> StereoSpikeConfig:
     if cfg.model != "stereospike":
         kwargs.update(tau=cfg.tau, use_plif=cfg.use_plif)
     return fac(**kwargs)
+
+
+def build_ann_config(cfg: TrainConfig) -> AnnConfig:
+    """Resolve an equivalent-ANN config from ``cfg.model``."""
+    if cfg.n_timesteps != 1:
+        # the ANN has no membrane to carry: a T>1 batch would train and
+        # evaluate on step 0 only, so refuse it
+        raise ValueError(
+            f"ANN models are single-step (n_timesteps={cfg.n_timesteps}); "
+            "channel-stack the chunks (n_timesteps=1) or use an SNN model")
+    return AnnConfig(in_channels=_in_channels(cfg), in_hw=tuple(cfg.in_hw),
+                     activation=ANN_MODELS[cfg.model])
 
 
 def _loss_config(cfg: TrainConfig) -> TotalLossConfig:

@@ -1,6 +1,12 @@
-"""The train step (counterpart of ``stereospike_tpu/train/steps.py``):
+"""The train and eval steps (counterpart of ``stereospike_tpu/train/steps.py``):
 forward over T → masked multiscale loss → BPTT through the fire kernels →
-Adam, one call per optimizer step.
+Adam, one call per optimizer step; and the no-grad eval step with
+per-sample statistics.
+
+The forward over T is step-major (``forward_sequence``: the whole network
+once per step) or, with ``multistep=True``, layer-major
+(``models/multistep.py::forward_multistep``: each layer over all T steps,
+one fire launch per site).
 
 Batch convention, as in the JAX package (NHWC):
 
@@ -20,10 +26,11 @@ parameters, their gradients, the loss and Adam's moments stay fp32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from stereospike_tpu_torch.models.multistep import forward_multistep
 from stereospike_tpu_torch.models.stereospike import (
     FireFn,
     StereoSpikeConfig,
@@ -44,21 +51,50 @@ def _to_master(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     return [t.to(torch.promote_types(t.dtype, torch.float32)) for t in tensors]
 
 
+def per_sample_eval_stats(depths: Sequence[torch.Tensor],
+                          spikes: Optional[Sequence[torch.Tensor]], gt: torch.Tensor,
+                          mask: torch.Tensor, loss_cfg: TotalLossConfig,
+                          learn_on: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample loss and MDE, averaged over the batch: the reference's
+    batch-size-1 accumulation, where every sample weighs the same whatever
+    its valid-pixel count. Each sample keeps its own n and its own
+    (Σ res)²/n² term, as the JAX package's vmap over the batch does.
+
+    Returns ``(loss_mean, mde_mean)``; a caller accumulates them weighted by
+    the batch's sample count."""
+    losses, mdes = [], []
+    for i in range(gt.shape[0]):
+        dep = [d[i:i + 1] for d in depths]
+        spk = [s[i:i + 1] for s in spikes or ()]
+        losses.append(total_loss(dep, gt[i:i + 1], mask[i:i + 1], spk, loss_cfg))
+        mdes.append(mean_depth_error(convert_to_lin(dep[0], learn_on),
+                                     convert_to_lin(gt[i:i + 1], learn_on), mask[i:i + 1]))
+    return torch.stack(losses).mean(), torch.stack(mdes).mean()
+
+
 def _loss_and_metrics(params: Dict[str, torch.Tensor], batch: Batch,
                       model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
                       learn_on: str, compute_dtype: torch.dtype, remat: bool,
-                      use_warmup: bool, use_init_pots: bool,
-                      fire_fn: FireFn) -> Tuple[torch.Tensor, torch.Tensor]:
+                      multistep: bool, use_warmup: bool, use_init_pots: bool,
+                      fire_fn: FireFn, per_sample: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(loss, MDE, full-scale depth) of a batch; with ``per_sample`` the
+    loss and MDE are :func:`per_sample_eval_stats`."""
     chunks = batch["chunks"].to(compute_dtype)
     p = ({k: v.to(compute_dtype) for k, v in params.items()}
          if compute_dtype != torch.float32 else params)
+
+    def fwd(frames, state=None):
+        if multistep:
+            return forward_multistep(p, frames, model_cfg, state, fire_fn=fire_fn)
+        return forward_sequence(p, frames, model_cfg, state, remat=remat, fire_fn=fire_fn)
+
     state0 = None
     if use_warmup and "warmup" in batch:
         # no-grad warmup inference settles the hidden state before the
         # train chunks (the reference's stateful-model recipe)
         with torch.no_grad():
-            _, _, state0 = forward_sequence(p, batch["warmup"].to(compute_dtype), model_cfg,
-                                            fire_fn=fire_fn)
+            _, _, state0 = fwd(batch["warmup"].to(compute_dtype))
     if use_init_pots and "init_pots" in batch:
         # seed the depth-integrator pool with the prior label
         if state0 is None:
@@ -66,28 +102,34 @@ def _loss_and_metrics(params: Dict[str, torch.Tensor], batch: Batch,
         state0 = dict(state0)
         state0["Ineurons"] = (batch["init_pots"].to(compute_dtype)
                               .permute(0, 3, 1, 2).contiguous())
-    depths, spikes, _ = forward_sequence(p, chunks, model_cfg, state0, remat=remat,
-                                         fire_fn=fire_fn)
+    depths, spikes, _ = fwd(chunks, state0)
     depths = _to_master(depths)
     spikes = _to_master(spikes)
     gt, mask = batch["gt"], batch["mask"]
+    if per_sample:
+        loss, mde = per_sample_eval_stats(depths, spikes, gt, mask, loss_cfg, learn_on)
+        return loss, mde, depths[0]
     loss = total_loss(depths, gt, mask, spikes, loss_cfg)
     with torch.no_grad():
         mde = mean_depth_error(convert_to_lin(depths[0], learn_on),
                                convert_to_lin(gt, learn_on), mask)
-    return loss, mde
+    return loss, mde, depths[0]
 
 
 def make_train_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
                     tx: Optimizer, *, learn_on: str = "LIN",
                     compute_dtype: torch.dtype = torch.float32, remat: bool = False,
-                    use_warmup: bool = False, use_init_pots: bool = False,
-                    accum_steps: int = 1, fire_fn: FireFn = multistep_fire
+                    multistep: bool = False, use_warmup: bool = False,
+                    use_init_pots: bool = False, accum_steps: int = 1,
+                    fire_fn: FireFn = multistep_fire
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """Build ``step(state, batch) -> (state, {"loss", "mde"})``.
 
     The state is updated in place (parameters, Adam's moments, ``step``)
     and returned. The learning rate of each update is ``tx.lr(state.step)``.
+    ``multistep=True`` runs the layer-major forward (13 fire launches per
+    step over [T, M] whatever T); otherwise the step-major
+    ``forward_sequence``, where ``remat`` recomputes steps 0..T-2.
     ``accum_steps > 1``: the batch is split into that many microbatches,
     each forward and backward in turn, so one microbatch of activations is
     live at a time; the gradient, loss and MDE are the means over the
@@ -98,8 +140,8 @@ def make_train_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def loss_fn(params, batch):
-        return _loss_and_metrics(params, batch, model_cfg, loss_cfg, learn_on,
-                                 compute_dtype, remat, use_warmup, use_init_pots, fire_fn)
+        return _loss_and_metrics(params, batch, model_cfg, loss_cfg, learn_on, compute_dtype,
+                                 remat, multistep, use_warmup, use_init_pots, fire_fn)[:2]
 
     def step(state: TrainState, batch: Batch):
         state.optimizer.zero_grad(set_to_none=True)
@@ -131,5 +173,30 @@ def make_train_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss, "mde": mde}
+
+    return step
+
+
+def make_eval_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig, *,
+                   learn_on: str = "LIN", compute_dtype: torch.dtype = torch.float32,
+                   multistep: bool = False, fire_fn: FireFn = multistep_fire
+                   ) -> Callable[[Dict[str, torch.Tensor], Batch], Dict[str, torch.Tensor]]:
+    """Build ``eval_step(params, batch) -> {"loss", "mde", "depth"}``, the
+    reference's no-grad validation and test body.
+
+    ``loss`` and ``mde`` are per-sample means over the batch
+    (:func:`per_sample_eval_stats`); ``depth`` is the full-scale depth
+    [B, H, W, 1]. It runs under ``torch.no_grad()``, so the fire launches
+    its forward kernel only. ``model_cfg.for_inference()`` is applied as in
+    the JAX package, where it selects a TPU execution form; here it changes
+    nothing."""
+    model_cfg = model_cfg.for_inference()
+
+    def step(params: Dict[str, torch.Tensor], batch: Batch) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            loss, mde, depth = _loss_and_metrics(
+                params, batch, model_cfg, loss_cfg, learn_on, compute_dtype, False,
+                multistep, False, False, fire_fn, per_sample=True)
+        return {"loss": loss, "mde": mde, "depth": depth}
 
     return step

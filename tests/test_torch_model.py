@@ -68,7 +68,7 @@ def test_init_params_and_state_match_jax_layout(name):
     at sigmoid(w) = 1/tau."""
     jcfg, tcfg = _configs(name)
     ours = init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    theirs = params_from_jax(_jax_params(name), tcfg)
+    theirs = params_from_jax(_jax_params(name), tcfg, device="cpu")
     assert {k: tuple(v.shape) for k, v in ours.items()} == \
         {k: tuple(v.shape) for k, v in theirs.items()}
     for k, v in ours.items():
@@ -78,7 +78,8 @@ def test_init_params_and_state_match_jax_layout(name):
         if k.endswith(".w"):
             np.testing.assert_allclose(float(torch.sigmoid(v)), 1.0 / tcfg.tau, rtol=1e-6)
     st = init_state(tcfg, 2, device="cpu")
-    jst = state_from_jax(jax.tree.map(np.asarray, jax_init_state(jcfg, 2)), tcfg)
+    jst = state_from_jax(jax.tree.map(np.asarray, jax_init_state(jcfg, 2)), tcfg,
+                         device="cpu")
     assert {k: tuple(v.shape) for k, v in st.items()} == \
         {k: tuple(v.shape) for k, v in jst.items()}
 
@@ -88,7 +89,7 @@ def test_stateful_forward_matches_jax(name, x64):
     jcfg, tcfg = _configs(name)
     jcfg = jcfg.for_inference()
     jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), _jax_params(name))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     assert all(v.dtype == torch.float64 for v in params.values())
     rng = np.random.default_rng(1)
     frames = rng.poisson(2.0, (3, 1, *HW, 4)).astype(np.float64)
@@ -118,7 +119,7 @@ def test_stateful_forward_matches_jax(name, x64):
         np.testing.assert_allclose(ours[site], np.asarray(v), rtol=1e-9, atol=1e-12,
                                    err_msg=site)
     # and the state comes back through state_from_jax unchanged
-    back = state_from_jax(ours, tcfg)
+    back = state_from_jax(ours, tcfg, device="cpu")
     for site, v in state.items():
         assert torch.equal(back[site], v), site
 

@@ -28,11 +28,11 @@ def _modules():
 
 # every module of the port so far; a new one is added here as it is ported
 PORTED = (
-    "cli", "data.synthetic", "data.voxelizer", "interop", "models.factory",
-    "models.stereospike", "nn.blocks", "nn.layers", "objectives.losses",
+    "cli", "data.synthetic", "data.voxelizer", "interop", "models.ann", "models.factory",
+    "models.multistep", "models.stereospike", "nn.blocks", "nn.layers", "objectives.losses",
     "objectives.metrics", "snn.cuda_kernels", "snn.neurons", "snn.surrogate", "sources",
-    "streaming", "train.config", "train.loop", "train.state", "train.steps",
-    "utils.logging",
+    "streaming", "train.ann_steps", "train.config", "train.loop", "train.state",
+    "train.steps", "utils.logging",
 )
 
 

@@ -93,7 +93,8 @@ def test_forward_sequence_gradients_match_jax(name, T, x64):
         loss_fn, argnums=(0, 1), has_aux=True))(jax.tree.map(jnp.asarray, jp),
                                                jnp.asarray(frames))
 
-    params = {k: v.requires_grad_(True) for k, v in params_from_jax(jp, tcfg).items()}
+    params = {k: v.requires_grad_(True)
+              for k, v in params_from_jax(jp, tcfg, device="cpu").items()}
     x = torch.from_numpy(frames).requires_grad_(True)
     depths, spikes, _ = forward_sequence(params, x, tcfg)
     loss = _loss_torch(depths, spikes)

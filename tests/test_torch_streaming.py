@@ -112,7 +112,7 @@ def test_streaming_evaluator_matches_jax(name, pipeline, with_maps, x64):
     kw = dict(in_hw=HW, base_channels=8)
     jcfg, tcfg = getattr(jax_factory, name)(**kw), getattr(factory, name)(**kw)
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     maps = None
     if with_maps:
         rng = np.random.default_rng(5)

@@ -75,7 +75,7 @@ def test_train_steps_match_jax(case, x64):
         jax_metrics.append((float(m["loss"]), float(m["mde"])))
 
     tx = make_optimizer(multistep_lr_schedule(LR, MILESTONES, 0.5, 1), wd)
-    state = create_train_state(params_from_jax(_jax_params_np(name), tcfg), tx,
+    state = create_train_state(params_from_jax(_jax_params_np(name), tcfg, device="cpu"), tx,
                                torch.Generator().manual_seed(1))
     step = make_train_step(tcfg, TotalLossConfig(), tx, compute_dtype=torch.float64, **kw)
     ours = []
