@@ -12,13 +12,16 @@ order; any failure ends the run with a non-zero exit and no result line:
               the card at the 13 spiking-site sizes of the flagship
               StereoSpike (260×346, B=1), T in {1, 5}, float32 and
               bfloat16, IF / LIF / PLIF (leak a device tensor); spikes and
-              membrane must agree exactly. Then time it at T=1 per site
-              with CUDA events.
+              membrane must agree exactly. The other reset modes at 3 site
+              sizes (bottom, conv2, conv4): soft reset (IF, PLIF), hard
+              reset to 0.3 (LIF, PLIF), undetached reset (IF, PLIF), exactly
+              too. Then time it at T=1 per site with CUDA events.
 4. backward — the fire backward kernel against its plain version at the
               same sizes, T in {1, 5}, float32 and bfloat16, IF / LIF /
               PLIF, ATan / Sigmoid: gx and gv0 exactly for ATan, within the
               stated tolerance for Sigmoid, the PLIF leak gradient within
-              its stated tolerance; then time it at T=1 per site.
+              its stated tolerance; the same in the other reset modes at
+              the 3 site sizes; then time it at T=1 per site.
 5. slice    — serve 20 synthetic windows (20,000 events per eye) through the
               port's ``stream_loop`` with the flagship at float32, pipeline 1:
               13 fire launches per window, finite depths; window 0 once more
@@ -51,7 +54,21 @@ order; any failure ends the run with a non-zero exit and no result line:
 10. ann     — the equivalent ANN (sigmoid), float32, B=16: 2 warm-up and 5
               timed train steps (finite, falling loss; every BN running
               statistic moved) and one eval step with the frozen statistics.
-11. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
+11. driver  — the training driver through ``stereospike_tpu_torch.cli.main``
+              in this process, on the learnable synthetic MVSEC fixture at
+              260×346 (66 depth frames: 8 steps per epoch at B=16), written
+              once as a ``.npy`` tree into a temporary directory removed at
+              the end: ``train`` (flagship, bf16, B=16, T=1, 2 epochs,
+              augmentation, packed uploads, prefetch 2), ``eval`` of
+              best.pt, ``firing-rates``, ``train --resume`` to a third
+              epoch, the layer-major path with warmup and seeded
+              integrators (T=5, B=4, 3 steps), DENSE (monocular, 1 epoch);
+              each with exact fire-launch counts (13 forward and 13 backward
+              per train step, 13 forward per warmup, val, test and
+              firing-rates batch), finite results, and h5py never imported;
+              then a profile of two steps inside a running loop with the
+              prefetcher live; one ``driver`` JSON line.
+12. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
               last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -81,6 +98,16 @@ MS_T, MS_BATCH = 5, 16      # bench.py's T>1 configuration (BENCH_T, BENCH_BATCH
 LONG_T = 12                 # beyond fire_bwd's register replay (T <= 8)
 EVAL_BATCH = ANN_BATCH = 16
 TAPS_BATCH = 2
+# the reset modes besides the default detached hard reset to 0, held at
+# three site sizes: (name, neuron, v_reset, detach_reset)
+RESET_MODES = (("soft", "if", None, True), ("soft", "plif", None, True),
+               ("hard0.3", "lif", 0.3, True), ("hard0.3", "plif", 0.3, True),
+               ("undetached", "if", 0.0, False), ("undetached", "plif", 0.0, False))
+RESET_SITES = ("bottom", "conv2", "conv4")
+# the driver: 66 synthetic depth frames give 2·(66 − 2) = 128 train samples
+# per epoch (8 steps at B=16), 22 val and 21 test samples
+DRIVER_FRAMES, DRIVER_BATCH = 66, 16
+LM_BATCH, LM_STEPS, DENSE_BATCH = 4, 3, 4
 # the backward's Sigmoid tolerance: one ulp of each element in the I/O
 # type, or 4 float32 ulps of the array's largest magnitude, whichever is
 # larger (expf may round otherwise than PyTorch's sigmoid, and 1 - s
@@ -183,6 +210,25 @@ def kernel_phase(torch, ck, cfg):
     log(f"[kernel] fire_fwd == plain version on {n_checks} cases (13 sites x T in {{1,5}} "
         "x float32/bfloat16 x IF/LIF/PLIF): spikes identical, vT max |diff| "
         f"{max_err} (tolerance 0)")
+    n_reset = 0
+    for site, m, steps, dtype, mode, kind, v_reset, _, (leak, k) in _reset_cases(torch, cfg,
+                                                                                  leaks):
+        v0 = (torch.rand(m, generator=g, device="cuda") * 0.8).to(dtype)
+        x = (torch.randn(steps, m, generator=g, device="cuda") * (0.5 / k)
+             + (1.0 - (1.0 - k) * 0.4) / k).to(dtype)
+        s, v = ck.multistep_fire(x, v0, leak, 1.0, v_reset, kind == "if")
+        rs, rv = ck.multistep_fire_reference(x, v0, leak, 1.0, v_reset, kind == "if")
+        torch.cuda.synchronize()
+        flips, err = int((s != rs).sum()), float((v.float() - rv.float()).abs().max())
+        rate = float(s.float().mean())
+        if flips or err != 0.0 or not 0.01 < rate < 0.99:
+            raise SystemExit(f"[kernel] {mode} {site} M={m} T={steps} {dtype} {kind}: {flips} "
+                             f"spike flips, max |vT diff| {err} (tolerance 0), spike rate "
+                             f"{rate:.3f}")
+        n_reset += 1
+    log(f"[kernel] fire_fwd == plain version in the other reset modes on {n_reset} cases "
+        f"({'/'.join(RESET_SITES)} x T in {{1,5}} x float32/bfloat16 x "
+        f"{', '.join(f'{m} {k}' for m, k, _, _ in RESET_MODES)}): spikes and vT identical")
     ck.multistep_fire.launches = launches0  # comparison launches do not count
 
     flush_buf = torch.ones(24 * 2 ** 20, dtype=torch.float32, device="cuda")  # 96 MB > L2
@@ -208,7 +254,20 @@ def kernel_phase(torch, ck, cfg):
             f"{p_ms * 1e3:8.2f} us  bound {max(bytes_ms, ops_ms) * 1e3:6.2f} us "
             f"({nbytes / 1e6:.2f} MB)")
     ck.multistep_fire.launches = launches0
-    return {"n_checks": n_checks, "max_abs_err": max_err, "sites": sites}
+    return {"n_checks": n_checks, "reset_mode_checks": n_reset, "max_abs_err": max_err,
+            "sites": sites}
+
+
+def _reset_cases(torch, cfg, leaks):
+    """(site, M, T, dtype, mode, neuron, v_reset, detach_reset, leak) of
+    every reset-mode case."""
+    for site, m in site_sizes(cfg):
+        if site not in RESET_SITES:
+            continue
+        for steps in (1, 5):
+            for dtype in (torch.float32, torch.bfloat16):
+                for mode, kind, v_reset, detach in RESET_MODES:
+                    yield site, m, steps, dtype, mode, kind, v_reset, detach, leaks[kind]
 
 
 def slice_phase(torch, ck, workdir: Path):
@@ -395,6 +454,47 @@ def backward_phase(torch, ck, cfg, flush):
         f"Sigmoid max |diff| {sig_err} ({sig_ulps} ulps; tolerance one ulp of the element "
         f"or {SIGMOID_F32_ULPS} float32 ulps of the array's max); PLIF gleak max |diff| "
         f"{gl_rel:.3g} of sum|terms| (tolerance {GLEAK_RTOL})")
+    n_reset = 0
+    for site, m, steps, dtype, mode, kind, v_reset, detach, (leak, k) in _reset_cases(
+            torch, cfg, leaks):
+        for name in ("atan", "sigmoid"):
+            v0 = (torch.rand(m, generator=g, device="cuda") * 0.8).to(dtype)
+            x = (torch.randn(steps, m, generator=g, device="cuda") * (0.5 / k)
+                 + (1.0 - (1.0 - k) * 0.4) / k).to(dtype)
+            gs = torch.randn(steps, m, generator=g, device="cuda").to(dtype)
+            gvt = torch.randn(m, generator=g, device="cuda").to(dtype)
+            args = (x, v0, leak, gs, gvt, 1.0, v_reset, kind == "if", name, None,
+                    kind == "plif")
+            gx, gv0, gl = ck.multistep_fire_backward(*args, detach_reset=detach)
+            rx, rv0, rl = ck.multistep_fire_backward_reference(*args, detach_reset=detach)
+            torch.cuda.synchronize()
+            where = f"[backward] {mode} {site} M={m} T={steps} {dtype} {kind} {name}"
+            if name == "atan":
+                err = max(float((gx.float() - rx.float()).abs().max()),
+                          float((gv0.float() - rv0.float()).abs().max()))
+                if err != 0.0:
+                    raise SystemExit(f"{where}: max |diff| {err} (tolerance 0)")
+            else:
+                for got, ref in ((gx, rx), (gv0, rv0)):
+                    ok, e, ulps = _sigmoid_ok(got, ref, torch)
+                    sig_err, sig_ulps = max(sig_err, e), max(sig_ulps, ulps)
+                    if not ok:
+                        raise SystemExit(f"{where}: max |diff| {e}, {ulps} ulps, beyond the "
+                                         "Sigmoid tolerance")
+            if kind == "plif":
+                _, _, terms = ck.multistep_fire_backward_reference(*args, reduce=False,
+                                                                   detach_reset=detach)
+                bound = GLEAK_RTOL * float(terms.abs().sum())
+                gerr = abs(float(gl) - float(rl))
+                gl_rel = max(gl_rel, gerr / max(bound / GLEAK_RTOL, 1e-30))
+                if gerr > bound:
+                    raise SystemExit(f"{where}: gleak {float(gl)} vs {float(rl)}, beyond {bound}")
+            n_reset += 1
+    log(f"[backward] fire_bwd vs plain version in the other reset modes on {n_reset} cases "
+        f"({'/'.join(RESET_SITES)} x T in {{1,5}} x float32/bfloat16 x "
+        f"{', '.join(f'{m} {k}' for m, k, _, _ in RESET_MODES)} x ATan/Sigmoid): ATan "
+        f"identical; Sigmoid and gleak within the tolerances above (max {sig_ulps} ulps, "
+        f"gleak {gl_rel:.3g} of sum|terms|)")
 
     sites = []
     for site, m in site_sizes(cfg):
@@ -420,7 +520,8 @@ def backward_phase(torch, ck, cfg, flush):
             f"{p_ms * 1e3:8.2f} us  bound {max(bytes_ms, ops_ms) * 1e3:6.2f} us "
             f"({nbytes / 1e6:.2f} MB)")
     ck.multistep_fire_backward.launches = launches0  # comparison launches do not count
-    return {"n_checks": n_checks, "max_abs_err": max(max_err, sig_err), "sigmoid_ulps": sig_ulps,
+    return {"n_checks": n_checks, "reset_mode_checks": n_reset,
+            "max_abs_err": max(max_err, sig_err), "sigmoid_ulps": sig_ulps,
             "gleak_rel": gl_rel, "sites": sites}
 
 
@@ -797,6 +898,286 @@ def ann_phase(torch, cfg) -> dict:
     return row
 
 
+def _cli_run(torch, ck, argv, tag: str):
+    """``cli.main(argv)`` in this process with the fire counts set to 0
+    just before and read just after: (its JSON result, forward launches,
+    backward launches, wall seconds)."""
+    import contextlib
+    import io
+
+    from stereospike_tpu_torch import cli
+
+    ck.multistep_fire.launches = 0
+    ck.multistep_fire_backward.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = ck.multistep_fire.launches, ck.multistep_fire_backward.launches
+    if rc != 0:
+        raise SystemExit(f"[driver] {tag}: cli exit {rc}")
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"[driver] {tag}: {json.dumps(result)}; fire launches {fwd} forward, {bwd} backward; "
+        f"{wall:.2f} s")
+    return result, fwd, bwd, wall
+
+
+def _expect(tag: str, got, want) -> None:
+    if got != want:
+        raise SystemExit(f"[driver] {tag}: {got}, expected {want}")
+
+
+def _finite(tag: str, result: dict, keys) -> None:
+    for k in keys:
+        if not math.isfinite(result[k]):
+            raise SystemExit(f"[driver] {tag}: {k} = {result[k]}")
+
+
+def _records(ckpt: Path):
+    with open(ckpt / "training_metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _busy_ms(events) -> float:
+    """The union of the device kernels' intervals, ms (two streams overlap)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def driver_profile(torch, ck, common, ckpt: Path) -> dict:
+    """torch.profiler over two steps (4 and 5) inside a running training
+    loop, the prefetcher live: the device's idle share over those steps'
+    wall time, the top kernels, and the device time of the wire unpack
+    and the augmentation (their ``record_function`` spans)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereospike_tpu_torch import cli
+    from stereospike_tpu_torch.train import loop
+
+    args = cli.build_parser().parse_args(["train", *common, "--checkpoint-dir", str(ckpt),
+                                          "--epochs", "1"])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def hook(step: int) -> None:
+        if step == 3:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            window["t0"] = time.perf_counter()
+        elif step == 5:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.__exit__(None, None, None)
+
+    loop.train_loop(cli.build_config(args), synthetic=True, max_steps=6, device="cuda",
+                    on_step=hook)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log("[driver-profile] torch.profiler reported no device time: not measured")
+        return {"idle_share": None}
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = _busy_ms(dev)
+    spans = {}
+    for e in prof.key_averages():
+        if e.key in ("stereospike::augment", "stereospike::unpack"):
+            spans[e.key] = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    out = {"wall_ms": window["wall_ms"], "busy_ms": busy,
+           "idle_share": 1 - busy / window["wall_ms"],
+           "fire_fwd": sum("fire_fwd_kernel" in e.name for e in dev),
+           "fire_bwd": sum("fire_bwd_kernel" in e.name for e in dev),
+           # the worker thread's spans, where the profiler records them
+           "worker_spans_ms": {k: v / 1e3 for k, v in spans.items()},
+           "top": [[n[:80], ms] for n, ms in sorted(by_name.items(), key=lambda r: -r[1])[:10]]}
+    log(f"[driver-profile] two bf16 B={DRIVER_BATCH} steps in the running loop: "
+        f"{json.dumps(out)}")
+    out["staging"] = staging_profile(torch, cli.build_config(args))
+    return out
+
+
+def staging_profile(torch, cfg) -> dict:
+    """One training batch's input stage, in this thread: the host time to
+    assemble it (``batches``) and to stage it (pin, upload, unpack,
+    augment: the worker's share of a step), and under torch.profiler the
+    device time of the wire unpack's and the augmentation's kernels and of
+    the host-to-device copies."""
+    import types
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereospike_tpu_torch.data.augmentation import AugmentConfig
+    from stereospike_tpu_torch.train import loop
+
+    (train_view, _, _), _ = loop._make_data(cfg, True, device="cuda")
+    batches = loop._batch_iter(cfg, train_view, shuffle=True, seed=cfg.seed)
+    state = types.SimpleNamespace(generator=torch.Generator().manual_seed(1),
+                                  device_generator=torch.Generator(device="cuda").manual_seed(2))
+    stager = loop._Stager(torch.device("cuda"))
+    prep = loop._augmented_prep(stager, AugmentConfig(), ("chunks", "gt", "mask"), True, state)
+    stager(prep, next(batches)).take()
+    torch.cuda.synchronize()
+    assemble, stage = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = next(batches)
+        t1 = time.perf_counter()
+        staged = stager(prep, host)
+        t2 = time.perf_counter()
+        staged.take()
+        torch.cuda.synchronize()
+        assemble.append((t1 - t0) * 1e3)
+        stage.append((t2 - t1) * 1e3)
+    host = next(batches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stager(prep, host).take()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {e.key: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+             for e in prof.key_averages()
+             if e.key in ("stereospike::augment", "stereospike::unpack")}
+    out = {"assemble_host_ms": statistics.median(assemble),
+           "stage_host_ms": statistics.median(stage),
+           "augment_device_ms": spans.get("stereospike::augment"),
+           "unpack_device_ms": spans.get("stereospike::unpack"),
+           "h2d_device_ms": sum(e.time_range.elapsed_us() for e in dev
+                                if "memcpy" in e.name.lower()) / 1e3,
+           "copies": [[e.name[:60], e.time_range.elapsed_us()] for e in dev
+                      if "memcpy" in e.name.lower()],
+           "host_bytes": int(sum(a.nbytes for a in host.values())),
+           "kernels": len([e for e in dev if "memcpy" not in e.name.lower()])}
+    log(f"[driver-staging] one B={cfg.batch_size} training batch's input stage: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def driver_phase(torch, ck, bare_frames_per_s: float) -> dict:
+    """The training driver on the card, through the CLI, on the learnable
+    synthetic MVSEC fixture at 260×346 (written once, removed at the end)."""
+    import shutil
+    import tempfile
+
+    from stereospike_tpu_torch.train import loop
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_driver_"))
+    try:
+        hw = ",".join(map(str, FLAGSHIP_HW))
+        data = ["--synthetic", "--device", "cuda", "--in-hw", hw, "--seed", "0",
+                "--synth-frames", str(DRIVER_FRAMES), "--synth-learnable", "true"]
+        flagship = [*data, "--model", "stereospike", "--compute-dtype", "bfloat16",
+                    "--batch-size", str(DRIVER_BATCH)]
+        train = [*flagship, "--n-timesteps", "1", "--augment", "true", "--pack-io", "true",
+                 "--prefetch", "2"]
+        ckpt = work / "flagship"
+        steps = 2 * (DRIVER_FRAMES - 2) // DRIVER_BATCH           # per epoch
+        n_val = len(range(0, DRIVER_FRAMES - 2, 3))
+        n_test = len(range(1, DRIVER_FRAMES - 2, 3))
+        val_batches = -(-n_val // DRIVER_BATCH)
+        test_batches = -(-n_test // DRIVER_BATCH)
+
+        torch.cuda.reset_peak_memory_stats()
+        tr, fwd, bwd, wall = _cli_run(torch, ck, ["train", *train, "--epochs", "2",
+                                                  "--checkpoint-dir", str(ckpt)],
+                                      "train 2 epochs")
+        peak = torch.cuda.max_memory_allocated()
+        _expect("train steps per epoch", tr["steps_per_epoch"], steps)
+        _expect("train forward launches", fwd, 13 * 2 * (steps + val_batches))
+        _expect("train backward launches", bwd, 13 * 2 * steps)
+        for name in ("best.pt", "latest.pt"):
+            if not (ckpt / name).exists():
+                raise SystemExit(f"[driver] train wrote no {name}")
+        recs = _records(ckpt)
+        _expect("train epochs logged", len(recs), 2)
+        for r in recs:
+            _finite("train", r, ("train_loss", "train_MDE", "val_loss", "val_MDE"))
+        if "h5py" in sys.modules:
+            raise SystemExit("[driver] the --synthetic path imported h5py")
+
+        ev, efwd, ebwd, ewall = _cli_run(torch, ck, ["eval", *flagship, "--which", "best.pt",
+                                                     "--checkpoint-dir", str(ckpt)], "eval")
+        _expect("eval launches", (efwd, ebwd), (13 * test_batches, 0))
+        _expect("eval samples", ev["n_samples"], n_test)
+        _finite("eval", ev, ("test_loss", "test_MDE"))
+
+        fr, ffwd, fbwd, _ = _cli_run(torch, ck, ["firing-rates", *flagship,
+                                                 "--checkpoint-dir", str(ckpt)],
+                                     "firing-rates")
+        _expect("firing-rates launches", (ffwd, fbwd), (13 * test_batches, 0))
+        if len(fr) != 14 or not all(0.0 <= v <= 1.0 for v in fr.values()):
+            raise SystemExit(f"[driver] firing rates {fr}")
+
+        rs, rfwd, rbwd, _ = _cli_run(torch, ck, ["train", *train, "--epochs", "3", "--resume",
+                                                 "true", "--checkpoint-dir", str(ckpt)],
+                                     "train --resume to epoch 3")
+        _expect("resumed epoch", rs["epoch"], 2)
+        with open(ckpt / "checkpoint_meta.json") as f:
+            _expect("resumed step count", json.load(f)["step"], 3 * steps)
+        _expect("resume launches", (rfwd, rbwd), (13 * (steps + val_batches), 13 * steps))
+        _finite("resume", rs, ("train_loss", "val_MDE"))
+
+        # layer-major T=5 with a warmup chunk and seeded integrators: per
+        # step a no-grad warmup forward (13) and the train forward and
+        # backward (13 + 13); validation has no warmup
+        lm_val = -(-len([i for i in range(0, DRIVER_FRAMES - 2, 3)
+                         if i < DRIVER_FRAMES - (1 + MS_T)]) // LM_BATCH)
+        lm, lfwd, lbwd, _ = _cli_run(torch, ck, [
+            "train", *data, "--model", "stereospike", "--compute-dtype", "bfloat16",
+            "--batch-size", str(LM_BATCH), "--n-inference", str(MS_T), "--n-timesteps",
+            str(MS_T), "--multistep", "true", "--use-warmup", "true", "--use-init-pots", "true",
+            "--max-steps", str(LM_STEPS), "--epochs", "1", "--checkpoint-dir",
+            str(work / "layer_major")], "layer-major T=5 warmup init-pots")
+        _expect("layer-major launches", (lfwd, lbwd),
+                (13 * (2 * LM_STEPS + lm_val), 13 * LM_STEPS))
+        _finite("layer-major", lm, ("train_loss", "val_MDE"))
+
+        dn, dfwd, dbwd, _ = _cli_run(torch, ck, [
+            "train", *data, "--dataset", "dense", "--model", "stereospike_monocular",
+            "--compute-dtype", "bfloat16", "--batch-size", str(DENSE_BATCH), "--epochs", "1",
+            "--checkpoint-dir", str(work / "dense")], "DENSE 1 epoch")
+        # 12 maps: 8 train, 2 val, 2 test
+        _expect("DENSE launches", (dfwd, dbwd), (13 * (8 // DENSE_BATCH + 1),
+                                                 13 * (8 // DENSE_BATCH)))
+        _finite("DENSE", dn, ("train_loss", "val_MDE"))
+
+        prof = driver_profile(torch, ck, train, work / "profile")
+        row = {
+            "fixture_write_s": tr["fixture_write_s"], "data_build_s": tr["data_build_s"],
+            "steps_per_epoch": tr["steps_per_epoch"],
+            # epoch 1: the first after cuDNN's autotuning and the allocator's warm-up
+            "train_frames_per_s": recs[1]["train_frames_per_s"],
+            "train_frames_per_s_epoch0": recs[0]["train_frames_per_s"],
+            "bare_step_frames_per_s": bare_frames_per_s,
+            "train_time_s": [r["train_time_s"] for r in recs],
+            "val_time_s": [r["val_time_s"] for r in recs],
+            "train_wall_s": wall, "eval_wall_s": ewall, "test_MDE": ev["test_MDE"],
+            "val_MDE": [r["val_MDE"] for r in recs], "peak_bytes": peak,
+            "launches": {"train": [fwd, bwd], "eval": [efwd, ebwd], "firing_rates": [ffwd, fbwd],
+                         "resume": [rfwd, rbwd], "layer_major": [lfwd, lbwd],
+                         "dense": [dfwd, dbwd]},
+            "idle_share": prof.get("idle_share"), "profile": prof,
+            "h5py_imported": "h5py" in sys.modules,
+        }
+        print(json.dumps({"driver": row}), flush=True)
+        return row
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        for root, _ in loop._FIXTURES.values():  # the fixture: written once, removed here
+            shutil.rmtree(root, ignore_errors=True)
+        loop._FIXTURES.clear()
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -831,6 +1212,8 @@ def main() -> int:
     taps = taps_phase(torch, ck, cfg)
     ann = ann_phase(torch, cfg)
     log(json.dumps({"multistep": ms, "eval": ev, "taps": taps, "ann": ann}))
+    torch.cuda.empty_cache()
+    drv = driver_phase(torch, ck, tr["b16"]["frames_per_s"])
     # the fire kernels' bound on the layer-major bf16 step: every site's
     # [T, M] read and written once; forward x, v0 in and spikes, v_T out,
     # (2T+2)·M values; backward x, v0, gs in and gx, gv0 out, (3T+2)·M
@@ -847,7 +1230,11 @@ def main() -> int:
         "route": "cuda",
         "source": "stereospike_tpu_torch/csrc/fire_fwd.cu",
         "replaces": "stereospike_tpu/snn/pallas_kernels.py:180",
-        "launches": serve_launches,
+        # this slice's main path: cli train, 2 epochs (train steps and val batches)
+        "launches": drv["launches"]["train"][0],
+        "driver_launches": drv["launches"],
+        "reset_mode_checks": kern["reset_mode_checks"],
+        "serve_launches": serve_launches,
         "max_abs_err": kern["max_abs_err"],
         # one window's 13 sites at T=1, float32, B=1, timed alone with the
         # L2 cache cold (per-site rows below)
@@ -875,8 +1262,11 @@ def main() -> int:
         "route": "cuda",
         "source": "stereospike_tpu_torch/csrc/fire_bwd.cu",
         "replaces": "stereospike_tpu/snn/pallas_kernels.py:226",
+        # this slice's main path: cli train, 2 epochs
+        "launches": drv["launches"]["train"][1],
+        "reset_mode_checks": bwd["reset_mode_checks"],
         # from the timed bf16 B=16 training steps
-        "launches": tr["b16"]["fire_bwd_launches"],
+        "train_launches": tr["b16"]["fire_bwd_launches"],
         "max_abs_err": bwd["max_abs_err"],
         # one step's 13 sites at T=1, float32, B=1, v_T unused, timed alone
         # with the L2 cache cold (per-site rows below)

@@ -2,7 +2,9 @@
 
 A second package beside the JAX one, held against it by the tests
 (``tests/test_torch_*.py``). It imports ``torch``, numpy and the standard
-library only — never ``jax`` and nothing of ``stereospike_tpu``. Module
+library only — never ``jax`` and nothing of ``stereospike_tpu``; h5py only
+inside the one function that opens an ``.hdf5`` file, and tensorboard only
+where it is installed. Module
 names mirror the JAX package so each counterpart is easy to find.
 
 Ported paths. Serving: ``python -m stereospike_tpu_torch.cli stream
@@ -15,8 +17,12 @@ step-major or, with ``multistep=True``, layer-major over T
 (``models/multistep.py``); ``make_eval_step`` gives per-sample statistics
 without a graph; ``models/stereospike.py::firing_rates_sequence`` the
 per-tap spike densities. The equivalent ANN baseline: ``models/ann.py``
-and ``train/ann_steps.py``. Every spiking site goes through the
-hand-written Hopper fire kernels (``csrc/fire_fwd.cu`` and, under
+and ``train/ann_steps.py``. Drivers: ``python -m stereospike_tpu_torch.cli
+train|eval|firing-rates`` (``train/loop.py``) over the MVSEC and DENSE data
+pipelines (``data/``, with the native host ops of ``native/``), with
+augmentation, packed and prefetched uploads, and checkpoints
+(``train/checkpoint.py``) that resume exactly. Every spiking site goes
+through the hand-written Hopper fire kernels (``csrc/fire_fwd.cu`` and, under
 autograd, ``csrc/fire_bwd.cu``, bound in ``snn/cuda_kernels.py``). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -5,23 +5,32 @@
 // forward is fire_fwd.cu. For every element m of M it first replays the
 // forward from (x, v0, leak) in fp32,
 //
-//     h_t = v_{t-1} + x_t                          (IF)
-//     h_t = v_{t-1} + (x_t - v_{t-1}) * leak       (LIF / PLIF)
+//     h_t = v_{t-1} + x_t                                   (IF)
+//     h_t = v_{t-1} + (x_t - (v_{t-1} - v_reset)) * leak    (LIF / PLIF)
 //     s_t = (h_t - v_th >= 0) ? 1 : 0
-//     v_t = (1 - s_t) * h_t + s_t * v_reset
+//     v_t = (1 - s_t) * h_t + s_t * v_reset    (hard reset)
+//     v_t = h_t - s_t * v_th                   (soft reset; v_reset = 0 is the rest)
 //
 // keeping v_{t-1}, then walks t = T-1 .. 0 with gv = gvT (zero when the
 // caller has no gradient for vT, gvT == nullptr):
 //
-//     dh    = gs_t * sg(h_t - v_th) + gv * (1 - s_t)     (reset detached)
+//     dh    = gs_t * sg(h_t - v_th) + gv * dv_t/dh_t
 //     gx_t  = dh               (IF)   |  dh * leak        (LIF / PLIF)
 //     gv    = dh               (IF)   |  dh * (1 - leak)  (LIF / PLIF)
-//     gleak += dh * (x_t - v_{t-1})                       (PLIF only)
+//     gleak += dh * (x_t - (v_{t-1} - v_reset))           (PLIF only)
 //
 // and writes gx [T, M] and gv0 [M] in the I/O type, and adds the PLIF leak
 // gradient into one fp32 scalar. sg is the surrogate derivative: ATan,
 // alpha / (2 * (1 + (c * u)^2)) with c = pi/2 * alpha, or Sigmoid,
 // alpha * s * (1 - s) with s = 1 / (1 + exp(-alpha * u)).
+//
+// dv_t/dh_t is (1 - s_t) for the detached hard reset (the default),
+// (1 - s_t) + (v_reset - h_t) * sg for an undetached hard reset, 1 for the
+// detached soft reset and 1 - v_th * sg for an undetached soft one. The
+// default (the detached hard reset to 0) is its own template variant with
+// the operations it had before the other modes were added; the others go
+// through one GENERAL variant that reads the modes as uniform runtime flags,
+// which would otherwise weigh on the default path's register replay.
 //
 // The replay never inverts the forward algebraically: (h - leak * x) /
 // (1 - leak) divides by zero as leak -> 1. v_{t-1} is kept instead: in
@@ -147,12 +156,29 @@ struct Args {
   int surrogate;
   float alpha;
   float c_atan;        // pi/2 * alpha, rounded once on the host
+  int soft;            // 1: soft reset (v -= v_th), 0: hard reset to v_reset
+  int detach;          // 1: the reset takes no gradient (the default)
 };
 
-template <int MODE>
-__device__ __forceinline__ float charge(float v, float x, float leak) {
+// v - rest: v_reset is the rest potential (0 on the default path and with a
+// soft reset)
+template <bool GENERAL>
+__device__ __forceinline__ float off_rest(float v, const Args& a) {
+  return GENERAL ? __fsub_rn(v, a.v_reset) : v;
+}
+
+template <int MODE, bool GENERAL>
+__device__ __forceinline__ float charge(float v, float x, float leak, const Args& a) {
   return MODE == kIF ? __fadd_rn(v, x)
-                     : __fadd_rn(v, __fmul_rn(__fsub_rn(x, v), leak));
+                     : __fadd_rn(v, __fmul_rn(__fsub_rn(x, off_rest<GENERAL>(v, a)), leak));
+}
+
+// the membrane after the fire on the charged potential h
+template <bool GENERAL>
+__device__ __forceinline__ float reset(float h, const Args& a) {
+  const float s = (__fsub_rn(h, a.v_th) >= 0.0f) ? 1.0f : 0.0f;
+  if (GENERAL && a.soft) return __fsub_rn(h, __fmul_rn(s, a.v_th));
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, s), h), __fmul_rn(s, a.v_reset));
 }
 
 __device__ __forceinline__ float surrogate_grad(float u, const Args& a) {
@@ -165,7 +191,7 @@ __device__ __forceinline__ float surrogate_grad(float u, const Args& a) {
 }
 
 // One group of N consecutive elements starting at m0: replay, then walk.
-template <typename T, int MODE, int PATH, int N>
+template <typename T, int MODE, int PATH, bool GENERAL, int N>
 __device__ __forceinline__ void backward_group(const Args& a, float leak, int64_t m0,
                                                float& gleak_acc) {
   const T* x = static_cast<const T*>(a.x);
@@ -189,9 +215,7 @@ __device__ __forceinline__ void backward_group(const Args& a, float leak, int64_
 #pragma unroll
           for (int j = 0; j < N; ++j) {
             vprev[t][j] = v[j];
-            const float h = charge<MODE>(v[j], xs[j], leak);
-            const float s = (__fsub_rn(h, a.v_th) >= 0.0f) ? 1.0f : 0.0f;
-            v[j] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, s), h), __fmul_rn(s, a.v_reset));
+            v[j] = reset<GENERAL>(charge<MODE, GENERAL>(v[j], xs[j], leak, a), a);
           }
         }
       }
@@ -201,9 +225,7 @@ __device__ __forceinline__ void backward_group(const Args& a, float leak, int64_
 #pragma unroll
         for (int j = 0; j < N; ++j) {
           a.scratch[int64_t(t) * M + m0 + j] = v[j];
-          const float h = charge<MODE>(v[j], xs[j], leak);
-          const float s = (__fsub_rn(h, a.v_th) >= 0.0f) ? 1.0f : 0.0f;
-          v[j] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, s), h), __fmul_rn(s, a.v_reset));
+          v[j] = reset<GENERAL>(charge<MODE, GENERAL>(v[j], xs[j], leak, a), a);
         }
       }
     }
@@ -224,11 +246,19 @@ __device__ __forceinline__ void backward_group(const Args& a, float leak, int64_
     load_n<T, N>(gs + int64_t(t) * M + m0, g);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const float h = charge<MODE>(vp[j], xs[j], leak);
+      const float h = charge<MODE, GENERAL>(vp[j], xs[j], leak, a);
       const float u = __fsub_rn(h, a.v_th);
       const float s = (u >= 0.0f) ? 1.0f : 0.0f;
-      const float dh = __fadd_rn(__fmul_rn(g[j], surrogate_grad(u, a)),
-                                 __fmul_rn(gv[j], __fsub_rn(1.0f, s)));
+      const float sg = surrogate_grad(u, a);
+      float dvdh = __fsub_rn(1.0f, s);  // dv_t/dh_t
+      if (GENERAL) {
+        if (a.soft) {
+          dvdh = a.detach ? 1.0f : __fsub_rn(1.0f, __fmul_rn(a.v_th, sg));
+        } else if (!a.detach) {
+          dvdh = __fadd_rn(dvdh, __fmul_rn(__fsub_rn(a.v_reset, h), sg));
+        }
+      }
+      const float dh = __fadd_rn(__fmul_rn(g[j], sg), __fmul_rn(gv[j], dvdh));
       if (MODE == kIF) {
         g[j] = dh;
         gv[j] = dh;
@@ -237,7 +267,8 @@ __device__ __forceinline__ void backward_group(const Args& a, float leak, int64_
         gv[j] = __fmul_rn(dh, __fsub_rn(1.0f, leak));
       }
       if (MODE == kPLIF) {
-        gleak_acc = __fadd_rn(gleak_acc, __fmul_rn(dh, __fsub_rn(xs[j], vp[j])));
+        gleak_acc = __fadd_rn(gleak_acc,
+                              __fmul_rn(dh, __fsub_rn(xs[j], off_rest<GENERAL>(vp[j], a))));
       }
     }
     store_n<T, N>(gx + int64_t(t) * M + m0, g);
@@ -265,7 +296,7 @@ __device__ __forceinline__ void backward_group(const Args& a, float leak, int64_
 // pointers, and M a multiple of V or T == 1), so elements [0, M / V * V)
 // go through 16-byte vectors; the remainder, or everything when !VEC,
 // goes through the scalar loop.
-template <typename T, int MODE, int PATH, bool VEC>
+template <typename T, int MODE, int PATH, bool GENERAL, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 fire_bwd_kernel(const Args a) {
   constexpr int V = Io<T>::V;
@@ -276,10 +307,10 @@ fire_bwd_kernel(const Args a) {
   float gleak_acc = 0.0f;
 
   for (int64_t i = tid; i < n_vec; i += stride) {
-    backward_group<T, MODE, PATH, V>(a, leak, i * V, gleak_acc);
+    backward_group<T, MODE, PATH, GENERAL, V>(a, leak, i * V, gleak_acc);
   }
   for (int64_t m = n_vec * V + tid; m < a.M; m += stride) {
-    backward_group<T, MODE, PATH, 1>(a, leak, m, gleak_acc);
+    backward_group<T, MODE, PATH, GENERAL, 1>(a, leak, m, gleak_acc);
   }
 
   if constexpr (MODE == kPLIF) {
@@ -302,34 +333,43 @@ fire_bwd_kernel(const Args a) {
   }
 }
 
-template <typename T, int MODE, int PATH, bool VEC>
+template <typename T, int MODE, int PATH, bool GENERAL, bool VEC>
 void launch(const Args& a, cudaStream_t stream) {
   const int64_t units = VEC ? a.M / Io<T>::V + a.M % Io<T>::V : a.M;
   int64_t blocks = (units + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > 65535 * 16) blocks = 65535 * 16;  // grid-stride covers the rest
-  fire_bwd_kernel<T, MODE, PATH, VEC><<<dim3(unsigned(blocks)), kThreads, 0, stream>>>(a);
+  fire_bwd_kernel<T, MODE, PATH, GENERAL, VEC>
+      <<<dim3(unsigned(blocks)), kThreads, 0, stream>>>(a);
 }
 
-template <typename T, int MODE, int PATH>
+template <typename T, int MODE, int PATH, bool GENERAL>
 void dispatch_vec(const Args& a, int vec, cudaStream_t stream) {
-  if (vec) launch<T, MODE, PATH, true>(a, stream);
-  else     launch<T, MODE, PATH, false>(a, stream);
+  if (vec) launch<T, MODE, PATH, GENERAL, true>(a, stream);
+  else     launch<T, MODE, PATH, GENERAL, false>(a, stream);
+}
+
+template <typename T, int MODE, bool GENERAL>
+void dispatch_path(const Args& a, int vec, cudaStream_t stream) {
+  if (a.steps == 1)              dispatch_vec<T, MODE, kOneStep, GENERAL>(a, vec, stream);
+  else if (a.steps <= kRegSteps) dispatch_vec<T, MODE, kRegisters, GENERAL>(a, vec, stream);
+  else                           dispatch_vec<T, MODE, kScratch, GENERAL>(a, vec, stream);
 }
 
 template <typename T, int MODE>
-void dispatch_path(const Args& a, int vec, cudaStream_t stream) {
-  if (a.steps == 1)              dispatch_vec<T, MODE, kOneStep>(a, vec, stream);
-  else if (a.steps <= kRegSteps) dispatch_vec<T, MODE, kRegisters>(a, vec, stream);
-  else                           dispatch_vec<T, MODE, kScratch>(a, vec, stream);
+void dispatch_general(const Args& a, int vec, cudaStream_t stream) {
+  // the detached hard reset to 0 takes the default variant
+  const bool general = a.soft || !a.detach || a.v_reset != 0.0f;
+  if (general) dispatch_path<T, MODE, true>(a, vec, stream);
+  else         dispatch_path<T, MODE, false>(a, vec, stream);
 }
 
 template <typename T>
 int dispatch_mode(const Args& a, int mode, int vec, cudaStream_t stream) {
   switch (mode) {
-    case kIF:   dispatch_path<T, kIF>(a, vec, stream); return 0;
-    case kLIF:  dispatch_path<T, kLIF>(a, vec, stream); return 0;
-    case kPLIF: dispatch_path<T, kPLIF>(a, vec, stream); return 0;
+    case kIF:   dispatch_general<T, kIF>(a, vec, stream); return 0;
+    case kLIF:  dispatch_general<T, kLIF>(a, vec, stream); return 0;
+    case kPLIF: dispatch_general<T, kPLIF>(a, vec, stream); return 0;
     default:    return int(cudaErrorInvalidValue);
   }
 }
@@ -345,14 +385,17 @@ int stereospike_fire_bwd_register_steps() { return kRegSteps; }
 // dtype: 0 = float32, 1 = bfloat16. mode: 0 = IF, 1 = LIF (leak, no leak
 // gradient), 2 = PLIF (leak and its gradient, added into *gleak, which the
 // caller zeroes). surrogate: 0 = ATan, 1 = Sigmoid. gvT may be null.
+// soft: 1 = soft reset, 0 = hard reset to v_reset, which is also the
+// LIF/PLIF rest potential (the caller passes 0 with a soft reset); detach:
+// 1 = the reset takes no gradient.
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess); a refused
 // launch never runs, so the caller must check it.
 int stereospike_fire_bwd(const void* x, const void* v0, const void* leak,
                          const void* gs, const void* gvT, void* gx, void* gv0,
                          void* gleak, void* scratch, long long M, int steps,
-                         float v_th, float v_reset, int surrogate, float alpha,
-                         float c_atan, int dtype, int mode, int vec,
-                         void* stream) {
+                         float v_th, float v_reset, int soft, int detach,
+                         int surrogate, float alpha, float c_atan,
+                         int dtype, int mode, int vec, void* stream) {
   if (steps < 1 || M < 0 || (surrogate != kATan && surrogate != kSigmoid) ||
       (steps > kRegSteps && scratch == nullptr) ||
       (mode != kIF && leak == nullptr) || (mode == kPLIF && gleak == nullptr)) {
@@ -360,7 +403,7 @@ int stereospike_fire_bwd(const void* x, const void* v0, const void* leak,
   }
   Args a{x, v0, static_cast<const float*>(leak), gs, gvT, gx, gv0,
          static_cast<float*>(gleak), static_cast<float*>(scratch),
-         int64_t(M), steps, v_th, v_reset, surrogate, alpha, c_atan};
+         int64_t(M), steps, v_th, v_reset, surrogate, alpha, c_atan, soft, detach};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {

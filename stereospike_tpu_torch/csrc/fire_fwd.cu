@@ -3,10 +3,15 @@
 // Replaces the TPU kernel stereospike_tpu/snn/pallas_kernels.py::_fwd_kernel
 // (launched by _ms_forward). Over t = 0..T-1, for every element m of M:
 //
-//     h_t = v + x_t                    (IF)
-//     h_t = v + (x_t - v) * leak       (LIF / PLIF, leak = 1/tau or sigmoid(w))
+//     h_t = v + x_t                               (IF)
+//     h_t = v + (x_t - (v - v_reset)) * leak      (LIF / PLIF, leak = 1/tau or sigmoid(w))
 //     s_t = (h_t - v_th >= 0) ? 1 : 0
-//     v   = (1 - s_t) * h_t + s_t * v_reset
+//     v   = (1 - s_t) * h_t + s_t * v_reset       (hard reset)
+//     v   = h_t - s_t * v_th                      (soft reset; v_reset = 0 is the rest)
+//
+// (whether the reset is detached matters to the backward only). Each reset
+// is a template variant: the default hard reset to 0 runs the operations it
+// ran before the rest potential and the soft reset were added.
 //
 // and writes spikes[T, M] and vT[M] in the I/O type. Arithmetic is fp32
 // whatever the I/O type, as on the TPU.
@@ -83,13 +88,19 @@ template <> struct Io<__nv_bfloat16> {
   }
 };
 
-template <bool IS_IF>
+// RESET: the hard reset to 0 (the default), a hard reset to v_reset != 0,
+// a soft reset (the caller passes v_reset = 0, its rest potential)
+enum Reset { kHardZero = 0, kHard = 1, kSoft = 2 };
+
+template <bool IS_IF, int RESET>
 __device__ __forceinline__ float fire_step(float& v, float x, float leak,
                                            float v_th, float v_reset) {
+  const float off = RESET == kHard ? __fsub_rn(v, v_reset) : v;  // v - rest
   const float h = IS_IF ? __fadd_rn(v, x)
-                        : __fadd_rn(v, __fmul_rn(__fsub_rn(x, v), leak));
+                        : __fadd_rn(v, __fmul_rn(__fsub_rn(x, off), leak));
   const float s = (__fsub_rn(h, v_th) >= 0.0f) ? 1.0f : 0.0f;
-  v = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, s), h), __fmul_rn(s, v_reset));
+  v = RESET == kSoft ? __fsub_rn(h, __fmul_rn(s, v_th))
+                     : __fadd_rn(__fmul_rn(__fsub_rn(1.0f, s), h), __fmul_rn(s, v_reset));
   return s;
 }
 
@@ -97,7 +108,7 @@ __device__ __forceinline__ float fire_step(float& v, float x, float leak,
 // pointers, and M a multiple of V or T == 1), so elements [0, M / V * V)
 // go through 16-byte vectors; the remainder, or everything when !VEC,
 // goes through the scalar loop.
-template <typename T, bool IS_IF, bool VEC>
+template <typename T, bool IS_IF, int RESET, bool VEC>
 __global__ void __launch_bounds__(256)
 fire_fwd_kernel(const T* __restrict__ x, const T* __restrict__ v0,
                 const float* __restrict__ leak_ptr, T* __restrict__ spikes,
@@ -119,7 +130,7 @@ fire_fwd_kernel(const T* __restrict__ x, const T* __restrict__ v0,
       io::load_vec(x + row, xs);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        xs[j] = fire_step<IS_IF>(v[j], xs[j], leak, v_th, v_reset);
+        xs[j] = fire_step<IS_IF, RESET>(v[j], xs[j], leak, v_th, v_reset);
       }
       io::store_vec(spikes + row, xs);
     }
@@ -131,13 +142,13 @@ fire_fwd_kernel(const T* __restrict__ x, const T* __restrict__ v0,
     for (int t = 0; t < steps; ++t) {
       const int64_t idx = int64_t(t) * M + m;
       io::store(spikes + idx,
-                fire_step<IS_IF>(v, io::load(x + idx), leak, v_th, v_reset));
+                fire_step<IS_IF, RESET>(v, io::load(x + idx), leak, v_th, v_reset));
     }
     io::store(vT + m, v);
   }
 }
 
-template <typename T, bool IS_IF, bool VEC>
+template <typename T, bool IS_IF, int RESET, bool VEC>
 void launch(const void* x, const void* v0, const float* leak, void* spikes,
             void* vT, int64_t M, int steps, float v_th, float v_reset,
             cudaStream_t stream) {
@@ -146,21 +157,45 @@ void launch(const void* x, const void* v0, const float* leak, void* spikes,
   int64_t blocks = (units + threads - 1) / threads;
   if (blocks < 1) blocks = 1;
   if (blocks > 65535 * 16) blocks = 65535 * 16;  // grid-stride covers the rest
-  fire_fwd_kernel<T, IS_IF, VEC><<<dim3(unsigned(blocks)), threads, 0, stream>>>(
+  fire_fwd_kernel<T, IS_IF, RESET, VEC><<<dim3(unsigned(blocks)), threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(v0), leak,
       static_cast<T*>(spikes), static_cast<T*>(vT), M, steps, v_th, v_reset);
+}
+
+template <typename T, bool IS_IF, int RESET>
+void dispatch_vec(const void* x, const void* v0, const float* leak, void* spikes,
+                  void* vT, int64_t M, int steps, float v_th, float v_reset, int vec,
+                  cudaStream_t stream) {
+  if (vec) launch<T, IS_IF, RESET, true>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset,
+                                         stream);
+  else     launch<T, IS_IF, RESET, false>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset,
+                                          stream);
+}
+
+template <typename T, bool IS_IF>
+void dispatch_reset(const void* x, const void* v0, const float* leak, void* spikes,
+                    void* vT, int64_t M, int steps, float v_th, float v_reset, int soft,
+                    int vec, cudaStream_t stream) {
+  if (soft) {
+    dispatch_vec<T, IS_IF, kSoft>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, vec, stream);
+  } else if (v_reset != 0.0f) {
+    dispatch_vec<T, IS_IF, kHard>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, vec, stream);
+  } else {
+    dispatch_vec<T, IS_IF, kHardZero>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, vec,
+                                      stream);
+  }
 }
 
 template <typename T>
 void dispatch(const void* x, const void* v0, const float* leak, void* spikes,
               void* vT, int64_t M, int steps, float v_th, float v_reset,
-              int is_if, int vec, cudaStream_t stream) {
+              int is_if, int soft, int vec, cudaStream_t stream) {
   if (is_if) {
-    if (vec) launch<T, true, true>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, stream);
-    else     launch<T, true, false>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, stream);
+    dispatch_reset<T, true>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, soft, vec,
+                            stream);
   } else {
-    if (vec) launch<T, false, true>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, stream);
-    else     launch<T, false, false>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, stream);
+    dispatch_reset<T, false>(x, v0, leak, spikes, vT, M, steps, v_th, v_reset, soft, vec,
+                             stream);
   }
 }
 
@@ -168,19 +203,22 @@ void dispatch(const void* x, const void* v0, const float* leak, void* spikes,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess); a refused launch never runs, so the caller
-// must check it.
+// dtype: 0 = float32, 1 = bfloat16. soft: 0 = hard reset to v_reset, 1 =
+// soft reset (v -= v_th). v_reset is also the LIF/PLIF rest potential: the
+// caller passes 0 with a soft reset. Returns cudaGetLastError() after the
+// launch (0 = cudaSuccess); a refused launch never runs, so the caller must
+// check it.
 int stereospike_fire_fwd(const void* x, const void* v0, const void* leak,
                          void* spikes, void* vT, long long M, int steps,
-                         float v_th, float v_reset, int dtype, int is_if,
+                         float v_th, float v_reset, int dtype, int is_if, int soft,
                          int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lk = static_cast<const float*>(leak);
   if (dtype == 0) {
-    dispatch<float>(x, v0, lk, spikes, vT, M, steps, v_th, v_reset, is_if, vec, s);
+    dispatch<float>(x, v0, lk, spikes, vT, M, steps, v_th, v_reset, is_if, soft, vec, s);
   } else if (dtype == 1) {
-    dispatch<__nv_bfloat16>(x, v0, lk, spikes, vT, M, steps, v_th, v_reset, is_if, vec, s);
+    dispatch<__nv_bfloat16>(x, v0, lk, spikes, vT, M, steps, v_th, v_reset, is_if, soft,
+                            vec, s);
   } else {
     return int(cudaErrorInvalidValue);
   }

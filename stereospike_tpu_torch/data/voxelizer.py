@@ -6,12 +6,17 @@ validity mask; masked rows scatter into a dump bin that is sliced off, so
 nothing depends on the data's size and nothing waits for the host. Frames
 are ``[n_frames, H, W, 2]``, channel 0 = ON, channel 1 = OFF. Frame f covers
 ``[f·dt, (f+1)·dt)`` after the offset ``t0``: the frame index is a floor.
+
+:func:`voxelize_sequence` bins a whole recorded stream on the device (the
+MVSEC loader's ``device_voxelize`` build); :func:`relativize_events`
+removes the absolute time offset in float64 before anything narrows.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 FRAME_H = 260
@@ -40,7 +45,8 @@ def rectify_events(events: torch.Tensor, x_map: torch.Tensor, y_map: torch.Tenso
     return rect, ok
 
 
-def events_to_frames(events: torch.Tensor, valid: torch.Tensor, t0: float, dt: float, *,
+def events_to_frames(events: torch.Tensor, valid: torch.Tensor,
+                     t0: Union[float, torch.Tensor], dt: Union[float, torch.Tensor], *,
                      n_frames: int, height: int = FRAME_H, width: int = FRAME_W,
                      polarity_encoding: str = "binary") -> torch.Tensor:
     """Scatter events into ``[n_frames, height, width, 2]`` float32 counts.
@@ -68,3 +74,57 @@ def events_to_frames(events: torch.Tensor, valid: torch.Tensor, t0: float, dt: f
     counts = torch.zeros(n_bins + 1, dtype=torch.float32, device=events.device)
     counts.index_add_(0, flat, torch.ones_like(t, dtype=torch.float32))
     return counts[:-1].view(n_frames, height, width, 2)
+
+
+LIDAR_FPS = 20.0  # ground-truth depth maps at 20 Hz (utils.py:9)
+
+
+def relativize_events(events: np.ndarray,
+                      t0: Optional[float] = None) -> Tuple[np.ndarray, float]:
+    """Remove the time offset at full precision, then narrow to float32.
+
+    Raw MVSEC timestamps are ROS epoch seconds (~1.5e9), where float32
+    resolution is ~128 s: a float32 cast before the offset removal collapses
+    a whole sequence into one or two distinct times. Returns (float32
+    events with relative times, the new t0 = 0.0)."""
+    events = np.asarray(events)
+    t0 = float(events[0, 2]) if t0 is None else float(t0)
+    out = np.empty(events.shape, np.float32)
+    out[:, 0] = events[:, 0]
+    out[:, 1] = events[:, 1]
+    out[:, 2] = (events[:, 2].astype(np.float64) - t0).astype(np.float32)
+    out[:, 3] = events[:, 3]
+    return out, 0.0
+
+
+def voxelize_sequence(events: np.ndarray, n_chunks: int, nfpdm: int = 1, *,
+                      x_map: Optional[np.ndarray] = None, y_map: Optional[np.ndarray] = None,
+                      height: int = FRAME_H, width: int = FRAME_W, block: int = 1 << 22,
+                      polarity_encoding: str = "binary", t0: Optional[float] = None,
+                      device: Union[str, torch.device] = "cuda") -> np.ndarray:
+    """A whole event stream → ``[n_chunks, nfpdm, H, W, 2]`` count frames,
+    binned on ``device``: blocks of ``block`` rows are rectified through
+    ``x_map``/``y_map`` (when given) and scatter-added into one buffer on
+    the device. ``t0`` defaults to the first event's time; float64 events
+    are relativized at full precision first (:func:`relativize_events`)."""
+    events = np.asarray(events)
+    t0 = float(events[0, 2]) if t0 is None else float(t0)
+    if events.dtype != np.float32:
+        events, t0 = relativize_events(events, t0)
+    n_frames = n_chunks * nfpdm
+    # float32 operands, as the JAX package forms the frame index
+    t0_d = torch.tensor(t0, dtype=torch.float32, device=device)
+    dt_d = torch.tensor(1.0 / (LIDAR_FPS * nfpdm), dtype=torch.float32, device=device)
+    maps = None
+    if x_map is not None:
+        maps = (torch.as_tensor(np.asarray(x_map, np.float32), device=device),
+                torch.as_tensor(np.asarray(y_map, np.float32), device=device))
+    acc = torch.zeros(n_frames, height, width, 2, dtype=torch.float32, device=device)
+    for start in range(0, events.shape[0], block):
+        ev = torch.as_tensor(np.ascontiguousarray(events[start:start + block]), device=device)
+        valid = torch.ones(ev.shape[0], dtype=torch.bool, device=device)
+        if maps is not None:
+            ev, valid = rectify_events(ev, maps[0], maps[1], valid, width=width, height=height)
+        acc += events_to_frames(ev, valid, t0_d, dt_d, n_frames=n_frames, height=height,
+                                width=width, polarity_encoding=polarity_encoding)
+    return acc.cpu().numpy().reshape(n_chunks, nfpdm, height, width, 2)

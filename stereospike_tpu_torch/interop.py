@@ -170,3 +170,58 @@ def ann_params_to_jax(params: Mapping[str, torch.Tensor], bn_state: Mapping[str,
         _put(state_tree, path, {theirs: np_(bn_state[f"{stem}.{ours}"])
                                 for theirs, ours in _BN_STATE_NAMES.items()})
     return tree, state_tree
+
+
+def _checked(sd: Mapping[str, torch.Tensor], expected: Mapping[str, torch.Tensor],
+             ignored: set, what: str, device) -> Dict[str, torch.Tensor]:
+    """``expected``'s keys from ``sd``, shape-checked (PLIF ``w`` may come
+    as [] or [1]), as float32 on ``device``; ``sd`` may hold nothing else
+    but ``ignored`` keys."""
+    missing = sorted(set(expected) - set(sd))
+    unused = sorted(set(sd) - set(expected) - ignored)
+    if missing or unused:
+        raise KeyError(f"{what} does not match the config: missing {missing[:4]}, "
+                       f"unmapped {unused[:4]} ({len(missing)} and {len(unused)} keys)")
+    out = {}
+    for k, ref in expected.items():
+        t = torch.as_tensor(sd[k])
+        if t.numel() == ref.numel() and t.dim() <= 1 and ref.dim() <= 1:
+            t = t.reshape(ref.shape)  # 0-dim PLIF w and [1] scales either way
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{what} '{k}' is {tuple(t.shape)}, the config expects "
+                             f"{tuple(ref.shape)}")
+        out[k] = t.to(device=device, dtype=ref.dtype)
+    return out
+
+
+def load_torch_checkpoint(path: str, cfg: StereoSpikeConfig, *,
+                          device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` state dict → the port's parameters for ``cfg``.
+
+    The port's keys are the ``.pth`` keys, so this is ``torch.load(
+    weights_only=True)`` and a key and shape check against ``cfg``: a
+    missing or unmapped key raises (an ANN checkpoint, another neuron
+    type), except the prediction heads that ``cfg`` cuts, which the
+    reference class still defines."""
+    from stereospike_tpu_torch.models.stereospike import init_params
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    expected = init_params(torch.Generator().manual_seed(0), cfg, device="meta")
+    cut = {k for s in (1, 2, 3, 4) if s not in cfg.heads
+           for k in sd if k.startswith(f"predict_depth{s}.")}
+    return _checked(sd, expected, cut, f"checkpoint {path}", device)
+
+
+def load_torch_ann_checkpoint(path: str, cfg, *, device: Union[str, torch.device] = "cuda"
+                              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """A reference equivalent-ANN ``.pth`` → the port's ``(params,
+    bn_state)`` for ``cfg`` (an ``AnnConfig``), key- and shape-checked;
+    BatchNorm's ``num_batches_tracked`` is torch bookkeeping and dropped."""
+    from stereospike_tpu_torch.models.ann import init_ann_params, init_ann_state
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    params = init_ann_params(torch.Generator().manual_seed(0), cfg, device="meta")
+    bn_state = init_ann_state(cfg, device="meta")
+    counters = {k for k in sd if k.endswith(".num_batches_tracked")}
+    both = _checked(sd, {**params, **bn_state}, counters, f"checkpoint {path}", device)
+    return ({k: both[k] for k in params}, {k: both[k] for k in bn_state})

@@ -39,7 +39,6 @@ from stereospike_tpu_torch.models.stereospike import (
     StereoSpikeConfig,
     _block,
     _leak,
-    check_fire_config,
     init_state,
 )
 from stereospike_tpu_torch.nn.blocks import conv_scale, sew_block_apply, upsample_conv_scale
@@ -53,7 +52,6 @@ def forward_multistep(params: Params, frames: torch.Tensor, cfg: StereoSpikeConf
     returns them: ``depths`` full-scale first, each [B, H, W, 1]; ``spikes``
     [out_rconv, out_add4, ..., out_add1] of step T-1 as NHWC views; the
     membrane state after step T-1."""
-    check_fire_config(cfg)
     b, steps = frames.shape[:2]
     if state is None:
         state = init_state(cfg, b, frames.dtype, device=frames.device)
@@ -72,7 +70,7 @@ def forward_multistep(params: Params, frames: torch.Tensor, cfg: StereoSpikeConf
         # layout that is not would raise here rather than be copied
         spikes, v = fire_fn(x.view(steps, -1), v0.reshape(-1), _leak(params, cfg, site, x),
                             cfg.v_threshold, cfg.v_reset, cfg.site_neuron(site) == "if",
-                            surrogate=surrogate, alpha=alpha)
+                            surrogate=surrogate, alpha=alpha, detach_reset=cfg.detach_reset)
         new_state[site] = v.view(v0.shape)
         return spikes.view(x.shape)
 

@@ -244,15 +244,6 @@ def _leak(params: Params, cfg: StereoSpikeConfig, site: str,
     raise ValueError(f"unknown neuron '{kind}'")
 
 
-def check_fire_config(cfg: StereoSpikeConfig) -> None:
-    """Refuse what the fused fire kernels do not compute: they always
-    detach the reset and reset hard to 0."""
-    if not cfg.detach_reset or cfg.v_reset != 0.0:
-        raise NotImplementedError(
-            "the fused fire kernel implements the detached hard reset to 0 "
-            f"only (detach_reset={cfg.detach_reset}, v_reset={cfg.v_reset!r})")
-
-
 def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
             state: Optional[State] = None, *, return_taps: bool = False,
             fire_fn: FireFn = multistep_fire):
@@ -266,7 +257,6 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
     layout). ``fire_fn`` is the fused fire (the kernel wrapper; its plain
     version for a comparison run). Gradients flow to ``params`` and
     ``frame`` through the fire's surrogate when grad mode is on."""
-    check_fire_config(cfg)
     x_in = frame.permute(0, 3, 1, 2).contiguous()
     if state is None:
         state = init_state(cfg, frame.shape[0], frame.dtype, device=frame.device)
@@ -277,7 +267,7 @@ def forward(params: Params, frame: torch.Tensor, cfg: StereoSpikeConfig,
         spikes, v = fire_fn(x.reshape(1, -1), state[site].reshape(-1),
                             _leak(params, cfg, site, x), cfg.v_threshold,
                             cfg.v_reset, cfg.site_neuron(site) == "if",
-                            surrogate=surrogate, alpha=alpha)
+                            surrogate=surrogate, alpha=alpha, detach_reset=cfg.detach_reset)
         new_state[site] = v.view(x.shape)
         return spikes.view(x.shape)
 

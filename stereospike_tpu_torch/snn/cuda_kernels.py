@@ -16,6 +16,12 @@ CUDA tensor and raises if it cannot; it takes its plain version
 (:func:`multistep_fire_reference`, :func:`multistep_fire_backward_reference`)
 only for a tensor on the CPU. ``multistep_fire.launches`` and
 ``multistep_fire_backward.launches`` count kernel launches.
+
+Every reset mode of the ``snn/neurons.py`` cells is computed: the hard
+reset to ``v_reset`` (the LIF/PLIF charge relaxing towards it), the soft
+reset (``v_reset=None``: ``v -= v_threshold``, rest potential 0), and
+``detach_reset=False``, where the backward carries the surrogate through
+the reset as well.
 """
 
 from __future__ import annotations
@@ -105,9 +111,8 @@ def _library(name: str) -> ctypes.CDLL:
 def _forward_kernel():
     fn = _library("fire_fwd").stereospike_fire_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -120,19 +125,30 @@ def _backward_kernel():
     fn = lib.stereospike_fire_bwd
     fn.argtypes = ([ctypes.c_void_p] * 9
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, lib.stereospike_fire_bwd_register_steps()
 
 
-def _check(x: torch.Tensor, v0: torch.Tensor, v_reset: float) -> None:
-    if v_reset != 0.0:
-        raise NotImplementedError(
-            f"the fused fire kernel resets to 0 only, got v_reset={v_reset!r}")
+def _check(x: torch.Tensor, v0: torch.Tensor) -> None:
     if x.dim() != 2 or v0.shape != x.shape[1:]:
         raise ValueError(f"need x [T, M] and v0 [M], got {tuple(x.shape)} "
                          f"and {tuple(v0.shape)}")
+
+
+def _rest(v_reset: Optional[float]) -> float:
+    """The LIF/PLIF rest potential: ``v_reset``, or 0 for a soft reset."""
+    return 0.0 if v_reset is None else float(v_reset)
+
+
+def _reset(h: torch.Tensor, s: torch.Tensor, v_threshold: float,
+           v_reset: Optional[float]) -> torch.Tensor:
+    """The membrane after the fire, in the kernels' order of operations."""
+    if v_reset is None:
+        return h - s * v_threshold
+    return (1.0 - s) * h + s * v_reset
 
 
 def _check_cuda(x: torch.Tensor, leak: Optional[torch.Tensor], is_if: bool,
@@ -163,7 +179,7 @@ def _vectorized(steps: int, m: int, element_size: int, *tensors: Optional[torch.
 
 
 def _fire_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
-                  v_threshold: float, v_reset: float,
+                  v_threshold: float, v_reset: Optional[float],
                   is_if: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel for a CUDA tensor, the plain version for a CPU one."""
     if x.device.type == "cpu":
@@ -180,8 +196,9 @@ def _fire_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor
         err = _forward_kernel()(x.data_ptr(), v0.data_ptr(),
                                 None if leak32 is None else leak32.data_ptr(),
                                 spikes.data_ptr(), v_t.data_ptr(), m, steps,
-                                float(v_threshold), float(v_reset),
-                                _DTYPE_CODES[x.dtype], int(is_if), int(vec), stream)
+                                float(v_threshold), _rest(v_reset),
+                                _DTYPE_CODES[x.dtype], int(is_if), int(v_reset is None),
+                                int(vec), stream)
     if err != 0:
         raise RuntimeError(f"fire forward kernel launch failed: cudaError_t {err}")
     multistep_fire.launches += 1
@@ -189,11 +206,12 @@ def _fire_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor
 
 
 def _reference_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
-                       v_threshold: float, v_reset: float,
+                       v_threshold: float, v_reset: Optional[float],
                        is_if: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """A loop over T of the ``snn/neurons.py`` cells, in float32 for
     float32/bfloat16 I/O (float64 stays float64), without a graph."""
     compute = torch.float64 if x.dtype == torch.float64 else torch.float32
+    rest = _rest(v_reset)
     with torch.no_grad():
         v = v0.to(compute)
         lk = None if is_if else leak.reshape(()).to(compute)
@@ -204,7 +222,7 @@ def _reference_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.T
                 v, s = if_step(v, xt, v_threshold=v_threshold, v_reset=v_reset,
                                spike_fn=heaviside)
             else:
-                v, s = fire_and_reset(v + (xt - v) * lk, v_threshold, v_reset,
+                v, s = fire_and_reset(v + (xt - (v - rest)) * lk, v_threshold, v_reset,
                                       heaviside, detach_reset=True)
             spikes[t] = s
     return spikes, v.to(v0.dtype)
@@ -216,11 +234,12 @@ class _Fire(torch.autograd.Function):
     versions, on any device). Saves (x, v0, leak), as ``_ms_fwd`` does."""
 
     @staticmethod
-    def forward(ctx, x, v0, leak, v_threshold, v_reset, is_if, surrogate, alpha, plain):
+    def forward(ctx, x, v0, leak, v_threshold, v_reset, is_if, surrogate, alpha, detach_reset,
+                plain):
         fwd = _reference_forward if plain else _fire_forward
         spikes, v_t = fwd(x, v0, leak, v_threshold, v_reset, is_if)
         ctx.save_for_backward(x, v0, leak)
-        ctx.meta = (v_threshold, v_reset, is_if, surrogate, alpha, plain)
+        ctx.meta = (v_threshold, v_reset, is_if, surrogate, alpha, detach_reset, plain)
         # an unused vT (T=1 training) arrives as None: the kernel skips its read
         ctx.set_materialize_grads(False)
         return spikes, v_t
@@ -228,15 +247,15 @@ class _Fire(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_spikes, g_v_t):
         x, v0, leak = ctx.saved_tensors
-        v_threshold, v_reset, is_if, surrogate, alpha, plain = ctx.meta
+        v_threshold, v_reset, is_if, surrogate, alpha, detach_reset, plain = ctx.meta
         if g_spikes is None:
             g_spikes = torch.zeros_like(x)
         need_gleak = not is_if and leak is not None and ctx.needs_input_grad[2]
         bwd = multistep_fire_backward_reference if plain else multistep_fire_backward
         gx, gv0, gleak = bwd(x, v0, leak, g_spikes, g_v_t, v_threshold, v_reset, is_if,
-                             surrogate, alpha, need_gleak)
+                             surrogate, alpha, need_gleak, detach_reset=detach_reset)
         return (gx, gv0 if ctx.needs_input_grad[1] else None, gleak,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def _wants_grad(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor]) -> bool:
@@ -245,17 +264,21 @@ def _wants_grad(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor])
 
 
 def multistep_fire(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
-                   v_threshold: float = 1.0, v_reset: float = 0.0, is_if: bool = False,
-                   surrogate: str = "atan",
-                   alpha: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   v_threshold: float = 1.0, v_reset: Optional[float] = 0.0,
+                   is_if: bool = False, surrogate: str = "atan",
+                   alpha: Optional[float] = None,
+                   detach_reset: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused T-step fire: charges ``x`` [T, M] from membrane ``v0`` [M] →
     (spikes [T, M], v_T [M]) in the dtype of ``x``.
 
     ``leak`` is unused for IF (``is_if=True``, h = v + x) and may be None;
     otherwise it is a one-element tensor on the device of ``x`` holding the
-    LIF/PLIF decay 1/tau or sigmoid(w) (h = v + (x - v)·leak), read by the
-    kernel from device memory. Fires on ``h - v_threshold >= 0`` and resets hard
-    to ``v_reset``, which must be 0 (the reset is always detached).
+    LIF/PLIF decay 1/tau or sigmoid(w) (h = v + (x - (v - rest))·leak, rest
+    = ``v_reset`` or 0 for a soft reset), read by the kernel from device
+    memory. Fires on ``h - v_threshold >= 0`` and resets hard to
+    ``v_reset``, or softly (``v_reset=None``: v = h - v_threshold).
+    ``detach_reset=False`` lets the surrogate gradient flow through the
+    reset too.
 
     When grad mode is on and ``x``, ``v0`` or ``leak`` requires grad, the
     call records the fire's backward: the ``surrogate`` derivative ('atan'
@@ -263,10 +286,11 @@ def multistep_fire(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tenso
     backward kernel, and the leak's gradient when it requires one (PLIF).
     Under ``no_grad`` nothing is saved. A CUDA tensor launches the kernel
     (float32 or bfloat16) or raises; a CPU tensor runs the plain version."""
-    _check(x, v0, v_reset)
+    _check(x, v0)
     alpha = resolve_alpha(surrogate, alpha)
     if _wants_grad(x, v0, leak):
-        return _Fire.apply(x, v0, leak, v_threshold, v_reset, is_if, surrogate, alpha, False)
+        return _Fire.apply(x, v0, leak, v_threshold, v_reset, is_if, surrogate, alpha,
+                           detach_reset, False)
     return _fire_forward(x, v0, leak, v_threshold, v_reset, is_if)
 
 
@@ -275,34 +299,38 @@ multistep_fire.launches = 0
 
 def multistep_fire_reference(x: torch.Tensor, v0: torch.Tensor,
                              leak: Optional[torch.Tensor],
-                             v_threshold: float = 1.0, v_reset: float = 0.0,
+                             v_threshold: float = 1.0, v_reset: Optional[float] = 0.0,
                              is_if: bool = False, surrogate: str = "atan",
-                             alpha: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                             alpha: Optional[float] = None,
+                             detach_reset: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`multistep_fire`, on any device: a loop
     over T of the ``snn/neurons.py`` cells, computed in float32 for
     float32/bfloat16 I/O (float64 stays float64). Its gradient is
     :func:`multistep_fire_backward_reference`."""
-    _check(x, v0, v_reset)
+    _check(x, v0)
     alpha = resolve_alpha(surrogate, alpha)
     if _wants_grad(x, v0, leak):
-        return _Fire.apply(x, v0, leak, v_threshold, v_reset, is_if, surrogate, alpha, True)
+        return _Fire.apply(x, v0, leak, v_threshold, v_reset, is_if, surrogate, alpha,
+                           detach_reset, True)
     return _reference_forward(x, v0, leak, v_threshold, v_reset, is_if)
 
 
 def multistep_fire_backward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
                             g_spikes: torch.Tensor, g_v_t: Optional[torch.Tensor],
-                            v_threshold: float = 1.0, v_reset: float = 0.0,
+                            v_threshold: float = 1.0, v_reset: Optional[float] = 0.0,
                             is_if: bool = False, surrogate: str = "atan",
-                            alpha: Optional[float] = None, need_gleak: bool = False) -> Grads:
+                            alpha: Optional[float] = None, need_gleak: bool = False, *,
+                            detach_reset: bool = True) -> Grads:
     """Backward of the fused fire: from the saved (x, v0, leak) and the
     gradients of spikes [T, M] and of v_T [M] (None: zero, as for an unused
     v_T), → (gx [T, M], gv0 [M], gleak), gx and gv0 in the dtype of ``x``.
     ``gleak`` is the PLIF leak's gradient in the leak's dtype and shape when
-    ``need_gleak``, else None.
+    ``need_gleak``, else None. ``v_reset`` and ``detach_reset`` are the
+    forward's reset mode (see :func:`multistep_fire`).
 
     A CUDA tensor launches ``csrc/fire_bwd.cu`` (float32 or bfloat16) or
     raises; a CPU tensor runs :func:`multistep_fire_backward_reference`."""
-    _check(x, v0, v_reset)
+    _check(x, v0)
     alpha = resolve_alpha(surrogate, alpha)
     if need_gleak and (is_if or leak is None):
         raise ValueError("a leak gradient needs a LIF/PLIF fire with a leak")
@@ -312,7 +340,8 @@ def multistep_fire_backward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[to
                          f"x {tuple(x.shape)} and v0 {tuple(v0.shape)}")
     if x.device.type == "cpu":
         return multistep_fire_backward_reference(x, v0, leak, g_spikes, g_v_t, v_threshold,
-                                                 v_reset, is_if, surrogate, alpha, need_gleak)
+                                                 v_reset, is_if, surrogate, alpha, need_gleak,
+                                                 detach_reset=detach_reset)
     leak32 = _check_cuda(x, leak, is_if, v0, g_spikes, g_v_t)
     kernel, register_steps = _backward_kernel()
     x, v0, g_spikes = (t.detach().contiguous() for t in (x, v0, g_spikes))
@@ -333,7 +362,8 @@ def multistep_fire_backward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[to
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = kernel(x.data_ptr(), v0.data_ptr(), ptr(leak32), g_spikes.data_ptr(),
                      ptr(g_v_t), gx.data_ptr(), gv0.data_ptr(), ptr(gleak32), ptr(scratch),
-                     m, steps, float(v_threshold), float(v_reset),
+                     m, steps, float(v_threshold), _rest(v_reset),
+                     int(v_reset is None), int(detach_reset),
                      _SURROGATE_CODES[surrogate], float(alpha),
                      # ATan's pi/2·alpha as the plain version forms it: in
                      # double, rounded once to float32 (by ctypes here)
@@ -351,10 +381,12 @@ multistep_fire_backward.launches = 0
 def multistep_fire_backward_reference(x: torch.Tensor, v0: torch.Tensor,
                                       leak: Optional[torch.Tensor], g_spikes: torch.Tensor,
                                       g_v_t: Optional[torch.Tensor],
-                                      v_threshold: float = 1.0, v_reset: float = 0.0,
+                                      v_threshold: float = 1.0,
+                                      v_reset: Optional[float] = 0.0,
                                       is_if: bool = False, surrogate: str = "atan",
                                       alpha: Optional[float] = None,
-                                      need_gleak: bool = False, reduce: bool = True) -> Grads:
+                                      need_gleak: bool = False, reduce: bool = True, *,
+                                      detach_reset: bool = True) -> Grads:
     """The plain version of :func:`multistep_fire_backward`, on any device:
     replay the forward in float32 (float64 stays float64) keeping v_{t-1},
     then walk t = T-1..0 with the surrogate derivative of
@@ -363,30 +395,39 @@ def multistep_fire_backward_reference(x: torch.Tensor, v0: torch.Tensor,
     ``reduce=False`` returns the per-element PLIF terms (float32 [M]) in
     place of their sum, from which a caller states the tolerance of the
     kernel's differently ordered sum."""
-    _check(x, v0, v_reset)
+    _check(x, v0)
     alpha = resolve_alpha(surrogate, alpha)
     compute = torch.float64 if x.dtype == torch.float64 else torch.float32
+    rest = _rest(v_reset)
     with torch.no_grad():
         lk = None if is_if else leak.detach().reshape(()).to(compute)
 
         def charge(v, xt):
-            return v + xt if is_if else v + (xt - v) * lk
+            return v + xt if is_if else v + (xt - (v - rest)) * lk
 
         v = v0.to(compute)
         v_prev = []
         for t in range(x.shape[0]):
             v_prev.append(v)
             h = charge(v, x[t].to(compute))
-            s = (h - v_threshold >= 0).to(compute)
-            v = (1.0 - s) * h + s * v_reset
+            v = _reset(h, (h - v_threshold >= 0).to(compute), v_threshold, v_reset)
         gv = (torch.zeros_like(v) if g_v_t is None else g_v_t.to(compute))
         gleak_terms = torch.zeros_like(v) if need_gleak else None
         gx = torch.empty_like(x)
         for t in range(x.shape[0] - 1, -1, -1):
             xt = x[t].to(compute)
-            u = charge(v_prev[t], xt) - v_threshold
+            h = charge(v_prev[t], xt)
+            u = h - v_threshold
             s = (u >= 0).to(compute)
-            dh = g_spikes[t].to(compute) * surrogate_grad(u, surrogate, alpha) + gv * (1.0 - s)
+            sg = surrogate_grad(u, surrogate, alpha)
+            # dv_t/dh_t through the reset
+            if v_reset is None:
+                dvdh = torch.ones_like(h) if detach_reset else 1.0 - v_threshold * sg
+            else:
+                dvdh = 1.0 - s
+                if not detach_reset:
+                    dvdh = dvdh + (v_reset - h) * sg
+            dh = g_spikes[t].to(compute) * sg + gv * dvdh
             if is_if:
                 gx[t] = dh
                 gv = dh
@@ -394,7 +435,7 @@ def multistep_fire_backward_reference(x: torch.Tensor, v0: torch.Tensor,
                 gx[t] = dh * lk
                 gv = dh * (1.0 - lk)
             if need_gleak:
-                gleak_terms = gleak_terms + dh * (xt - v_prev[t])
+                gleak_terms = gleak_terms + dh * (xt - (v_prev[t] - rest))
     gleak = None
     if need_gleak:
         gleak = (gleak_terms.sum().reshape(leak.shape).to(leak.dtype) if reduce

@@ -1,5 +1,6 @@
 """Training infrastructure: run configuration, optimizer, train state, the
-SNN and ANN train and eval steps, and the serving loop (``train.loop``)."""
+SNN and ANN train and eval steps, checkpoints (``train.checkpoint``), and
+the training, evaluation, profiling and serving loops (``train.loop``)."""
 
 from stereospike_tpu_torch.train.config import TrainConfig  # noqa: F401
 from stereospike_tpu_torch.train.state import (  # noqa: F401

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -28,8 +28,9 @@ Params = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class AnnTrainState:
     """Parameters (leaves that require grad), BN running statistics, the
-    Adam built over the parameters, the global optimizer step, the epoch
-    and the best validation metric so far. The train step updates it in
+    Adam built over the parameters, the global optimizer step, the epoch,
+    the best validation metric so far and the augmentation's generators
+    (as in ``train/state.py::TrainState``). The train step updates it in
     place."""
 
     params: Params
@@ -38,6 +39,8 @@ class AnnTrainState:
     step: int = 0
     epoch: int = 0
     best_metric: float = math.inf
+    generator: Optional[torch.Generator] = None
+    device_generator: Optional[torch.Generator] = None
 
 
 def create_ann_train_state(params: Params, bn_state: Params, tx: Optimizer) -> AnnTrainState:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, Sequence, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Union
 
 import torch
 
@@ -63,8 +63,10 @@ def make_optimizer(learning_rate: Union[float, Schedule],
 class TrainState:
     """Parameters (fp32 master leaves that require grad), the Adam built
     over them, the global optimizer step, the epoch, the best validation
-    metric so far, and the generator for augmentation and the like. The
-    train step updates it in place."""
+    metric so far, and the augmentation's generators: ``generator`` on the
+    CPU (per-sample draws) and ``device_generator`` on the batch's device
+    (per-element draws). The train step updates it in place; the
+    checkpoint holds all of it."""
 
     params: Dict[str, torch.Tensor]
     optimizer: torch.optim.Adam
@@ -72,6 +74,7 @@ class TrainState:
     epoch: int = 0
     best_metric: float = math.inf
     generator: torch.Generator = dataclasses.field(default_factory=torch.Generator)
+    device_generator: Optional[torch.Generator] = None
 
 
 def create_train_state(params: Dict[str, torch.Tensor], tx: Optimizer,

@@ -1,1 +1,1 @@
-"""Logging sinks."""
+"""Logging sinks and profiling hooks."""

@@ -75,15 +75,21 @@ def test_fire_matches_jax_kernel(kind, T, dtype):
 
 
 def test_fire_float64_plain_version_and_validation():
-    """float64 stays float64 (the model's float64 parity runs need it), and
-    the wrapper refuses what the kernel does not compute."""
+    """float64 stays float64 (the model's float64 parity runs need it); a
+    hard reset to a non-zero potential and the soft reset are computed as
+    the cells compute them; the wrapper refuses mismatched shapes."""
     x, v0 = _data(3, 64)
     s, v = multistep_fire(torch.from_numpy(x).double(), torch.from_numpy(v0).double(),
                           torch.tensor(0.25, dtype=torch.float64))
     assert s.dtype == v.dtype == torch.float64
-    with pytest.raises(NotImplementedError):
-        multistep_fire(torch.from_numpy(x), torch.from_numpy(v0), None, v_reset=0.5,
-                       is_if=True)
+    for v_reset in (0.5, None):
+        s, v = multistep_fire(torch.from_numpy(x), torch.from_numpy(v0), None, v_reset=v_reset,
+                              is_if=True)
+        cv = torch.from_numpy(v0)
+        for t in range(3):
+            cv, cs = neurons.if_step(cv, torch.from_numpy(x[t]), v_reset=v_reset)
+            assert torch.equal(s[t], cs)
+        assert torch.equal(v, cv)
     with pytest.raises(ValueError):
         multistep_fire(torch.from_numpy(x), torch.from_numpy(v0[:10]), None, is_if=True)
 

@@ -268,3 +268,40 @@ def test_backward_kernel_matches_plain_version_on_the_card(dtype):
                     n += 1
     torch.cuda.synchronize()
     assert cuda_kernels.multistep_fire_backward.launches == launches + n
+
+
+# the reset modes other than the default (detached hard reset to 0), as
+# (neuron, v_reset, detach_reset); tests/test_torch_reset_modes.py holds
+# their plain versions against the JAX cells
+RESET_LEAK = 0.4
+CARD_MODES = [("if", None, True), ("plif", None, True), ("lif", 0.3, True),
+              ("plif", 0.3, True), ("if", 0.0, False), ("plif", 0.0, False),
+              ("plif", None, False), ("plif", 0.3, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_versions_in_every_reset_mode_on_the_card(dtype):
+    """Forward and ATan backward bit for bit, as on the default path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fire kernels have no CPU build")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    launches = cuda_kernels.multistep_fire.launches
+    for m in (1000, 1003, 191488):
+        for steps in (1, 5, 12):
+            for kind, v_reset, detach in CARD_MODES:
+                x = (torch.randn(steps, m, generator=g, device="cuda") * 0.6 + 0.7).to(dtype)
+                v0 = (torch.rand(m, generator=g, device="cuda") * 0.5).to(dtype)
+                lk = None if kind == "if" else torch.tensor(RESET_LEAK, device="cuda")
+                s, v = multistep_fire(x, v0, lk, 1.0, v_reset, kind == "if")
+                rs, rv = multistep_fire_reference(x, v0, lk, 1.0, v_reset, kind == "if")
+                assert torch.equal(s, rs) and torch.equal(v, rv), (m, steps, kind, v_reset)
+                gs = torch.randn(steps, m, generator=g, device="cuda").to(dtype)
+                gvT = torch.randn(m, generator=g, device="cuda").to(dtype)
+                args = (x, v0, lk, gs, gvT, 1.0, v_reset, kind == "if", "atan", None,
+                        kind == "plif")
+                gx, gv0, _ = multistep_fire_backward(*args, detach_reset=detach)
+                rx, rv0, _ = multistep_fire_backward_reference(*args, detach_reset=detach)
+                assert torch.equal(gx, rx) and torch.equal(gv0, rv0), (m, steps, kind, v_reset,
+                                                                      detach)
+    assert cuda_kernels.multistep_fire.launches > launches

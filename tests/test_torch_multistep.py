@@ -195,10 +195,12 @@ def test_forward_multistep_makes_one_fire_call_per_site():
 
     _, _, state = forward_multistep(params, torch.from_numpy(frames_np(5)), tcfg, fire_fn=spy)
     assert calls == [((5, state[s].numel()), (state[s].numel(),)) for s in SPIKING_SITES]
-    for bad in (dict(detach_reset=False), dict(v_reset=0.5)):
-        with pytest.raises(NotImplementedError):
-            forward_multistep(params, torch.from_numpy(frames_np(1)),
-                              dataclasses.replace(tcfg, **bad))
+    # every reset mode goes through the same 13 calls
+    for mode in (dict(detach_reset=False), dict(v_reset=0.5), dict(v_reset=None)):
+        calls.clear()
+        forward_multistep(params, torch.from_numpy(frames_np(1)),
+                          dataclasses.replace(tcfg, **mode), fire_fn=spy)
+        assert len(calls) == len(SPIKING_SITES), mode
 
 
 LR = 2e-4

@@ -28,11 +28,13 @@ def _modules():
 
 # every module of the port so far; a new one is added here as it is ported
 PORTED = (
-    "cli", "data.synthetic", "data.voxelizer", "interop", "models.ann", "models.factory",
-    "models.multistep", "models.stereospike", "nn.blocks", "nn.layers", "objectives.losses",
-    "objectives.metrics", "snn.cuda_kernels", "snn.neurons", "snn.surrogate", "sources",
-    "streaming", "train.ann_steps", "train.config", "train.loop", "train.state",
-    "train.steps", "utils.logging",
+    "cli", "data.augmentation", "data.dense", "data.fixtures", "data.mvsec", "data.packing",
+    "data.synthetic", "data.voxelizer", "interop", "models.ann", "models.factory",
+    "models.multistep", "models.stereospike", "native", "nn.blocks", "nn.layers",
+    "objectives.losses", "objectives.metrics", "snn.cuda_kernels", "snn.neurons",
+    "snn.surrogate", "sources", "streaming", "train.ann_steps", "train.checkpoint",
+    "train.config", "train.loop", "train.state", "train.steps", "utils.logging",
+    "utils.profiling",
 )
 
 
@@ -66,6 +68,42 @@ def _imported_roots(path: Path):
 def test_sources_import_no_jax(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
+
+
+def _module_level_imports(path: Path):
+    """Roots imported by statements outside any function or class."""
+    roots = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", *[
+    str(p.relative_to(ROOT)) for p in sorted((ROOT / "stereospike_tpu_torch").rglob("*.py"))]])
+def test_h5py_only_inside_the_hdf5_reader(path):
+    """h5py is imported by no module at import time, and inside one
+    function only: ``data/mvsec.py::_open_hdf5``."""
+    tree = ast.parse((ROOT / path).read_text())
+    assert "h5py" not in _module_level_imports(ROOT / path)
+    inside = {fn.name for fn in ast.walk(tree)
+              if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for node in ast.walk(fn)
+              if isinstance(node, ast.Import) and any(a.name == "h5py" for a in node.names)}
+    assert inside == ({"_open_hdf5"} if path.endswith("data/mvsec.py") else set()), inside
+
+
+def test_native_build_uses_the_ports_source_and_build_dir():
+    from stereospike_tpu_torch import native
+
+    assert native.SOURCE == ROOT / "stereospike_tpu_torch" / "native" / "host_ops.cpp"
+    assert native.BUILD_DIR == ROOT / "build" / "stereospike_tpu_torch"
+    lib = native.library_path()
+    assert lib.parent == native.BUILD_DIR
+    assert ROOT / "stereospike_tpu" / "native" not in (lib.parent, *lib.parents)
+    assert native.build() == lib and lib.exists()
 
 
 def test_chip_smoke_refuses_without_a_card():
