@@ -67,8 +67,25 @@ order; any failure ends the run with a non-zero exit and no result line:
               per train step, 13 forward per warmup, val, test and
               firing-rates batch), finite results, and h5py never imported;
               then a profile of two steps inside a running loop with the
-              prefetcher live; one ``driver`` JSON line.
-12. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
+              prefetcher live; one ``driver`` JSON line. Its ``best.pt`` is
+              kept for the serving phase.
+12. serving — the rest of serving, with the driver's trained flagship
+              (float32 unless stated, deterministic cuDNN): ``stream
+              --which best.pt`` and ``--import-pth`` of the same tensors,
+              20 windows each, equal depths; 8 cameras in one batched step
+              (float32 and bf16, 20 windows, pipeline 1), each stream
+              against a 1-stream evaluator within the stated tolerance,
+              with a profile of the fire kernel per 8-stream window; ``cli
+              stream --listen --reply --n-windows 10`` for the monocular and
+              the binocular model, fed by a producer thread over the
+              loopback, replies equal to a direct evaluator's depths; a
+              stereo AEDAT 3.1 recording served in full; ``cli
+              export-serving`` at 1 stream (float32) and 4 (bf16),
+              ``from_artifact`` equal to the live evaluator bit for bit, the
+              4-stream artifact served, ``stream --artifact`` for 20
+              windows; exactly 13 fire launches per window everywhere; one
+              ``serving`` JSON line.
+13. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
               last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -83,6 +100,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -107,6 +126,13 @@ RESET_SITES = ("bottom", "conv2", "conv4")
 # the driver: 66 synthetic depth frames give 2·(66 − 2) = 128 train samples
 # per epoch (8 steps at B=16), 22 val and 21 test samples
 DRIVER_FRAMES, DRIVER_BATCH = 66, 16
+# serving: cameras in one batched step, socket and AEDAT windows
+SERVE_STREAMS, SOCKET_WINDOWS, AEDAT_WINDOWS = 8, 10, 6
+# stream s of the 8-stream evaluator against a 1-stream evaluator (deterministic
+# cuDNN): the two batch sizes may pick other conv algorithms, which sum in
+# another order (float32: ulps; bf16: its rounding), and a charge that lands
+# on the threshold then flips a spike (measured on the H100: 0 at both)
+SERVE_STREAM_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 LM_BATCH, LM_STEPS, DENSE_BATCH = 4, 3, 4
 # the backward's Sigmoid tolerance: one ulp of each element in the I/O
 # type, or 4 float32 ulps of the array's largest magnitude, whichever is
@@ -924,9 +950,9 @@ def _cli_run(torch, ck, argv, tag: str):
     return result, fwd, bwd, wall
 
 
-def _expect(tag: str, got, want) -> None:
+def _expect(tag: str, got, want, phase: str = "driver") -> None:
     if got != want:
-        raise SystemExit(f"[driver] {tag}: {got}, expected {want}")
+        raise SystemExit(f"[{phase}] {tag}: {got}, expected {want}")
 
 
 def _finite(tag: str, result: dict, keys) -> None:
@@ -1063,9 +1089,10 @@ def staging_profile(torch, cfg) -> dict:
     return out
 
 
-def driver_phase(torch, ck, bare_frames_per_s: float) -> dict:
+def driver_phase(torch, ck, bare_frames_per_s: float, keep: Path) -> dict:
     """The training driver on the card, through the CLI, on the learnable
-    synthetic MVSEC fixture at 260×346 (written once, removed at the end)."""
+    synthetic MVSEC fixture at 260×346 (written once, removed at the end).
+    The trained ``best.pt`` is copied into ``keep`` for the serving phase."""
     import shutil
     import tempfile
 
@@ -1170,12 +1197,329 @@ def driver_phase(torch, ck, bare_frames_per_s: float) -> dict:
             "h5py_imported": "h5py" in sys.modules,
         }
         print(json.dumps({"driver": row}), flush=True)
+        keep.mkdir(parents=True, exist_ok=True)
+        shutil.copy(ckpt / "best.pt", keep / "best.pt")
         return row
     finally:
         shutil.rmtree(work, ignore_errors=True)
         for root, _ in loop._FIXTURES.values():  # the fixture: written once, removed here
             shutil.rmtree(root, ignore_errors=True)
         loop._FIXTURES.clear()
+
+
+def _serving_windows(n_windows: int, streams: int, eyes=("left", "right"), seed: int = 0):
+    """``n_windows`` lists of ``streams`` synthetic window dicts at 260×346
+    (stream s draws from seed ``seed + 1000·s``)."""
+    from stereospike_tpu_torch.sources import SyntheticSource
+
+    per_stream = [list(SyntheticSource(hw=FLAGSHIP_HW, eyes=eyes, n_windows=n_windows,
+                                       events_per_window=EVENTS_PER_WINDOW,
+                                       seed=seed + 1000 * s)) for s in range(streams)]
+    return [[per_stream[s][i] for s in range(streams)] for i in range(n_windows)]
+
+
+def _serve_timed(torch, ck, ev, windows, stacked: bool = True):
+    """Push ``windows`` through ``ev`` (host clock per push, as ``stream_loop``
+    times it), drain the pipeline: (depths, per-push ms, forward launches,
+    seconds from the end of the first push to the end of the drain)."""
+    ck.multistep_fire.launches = 0
+    depths, lat = [], []
+    t_first = None
+    for win in windows:
+        t0 = time.perf_counter()
+        d = ev.push(win if stacked else win[0])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        t_first = t_first or time.perf_counter()
+        if d is not None:
+            depths.append(d)
+    while (d := ev.flush()) is not None:
+        depths.append(d)
+    torch.cuda.synchronize()
+    return depths, lat, ck.multistep_fire.launches, time.perf_counter() - t_first
+
+
+def _interval(lat) -> dict:
+    steady = lat[1:] or lat
+    return {"interval_ms_mean": statistics.fmean(steady),
+            "interval_ms_p99": float(sorted(steady)[max(0, math.ceil(0.99 * len(steady)) - 1)])}
+
+
+def _producer(send_events, recv_depth, port: int, packets, n_replies: int, out: list,
+              errors: list) -> None:
+    """A camera driver on the loopback: connect (the server may still be
+    loading), send ``packets``, read ``n_replies`` depth replies."""
+    import socket
+
+    try:
+        deadline = time.time() + 120
+        while True:
+            try:
+                sock = socket.create_connection(("127.0.0.1", port), timeout=5)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+        with sock:
+            sock.settimeout(120)
+            for eye, ev in packets:
+                send_events(sock, eye, ev)
+            for _ in range(n_replies):
+                out.append(recv_depth(sock))
+    except Exception as e:  # reported by the caller
+        errors.append(e)
+
+
+def _socket_case(torch, ck, sources, model: str, eyes, common, n_windows: int) -> dict:
+    """``cli stream --listen --reply --n-windows N`` fed by a producer
+    thread; the replies against a direct evaluator on the windows the wire
+    assembles (float32, deterministic cuDNN: equal bit for bit)."""
+    import socket
+    import threading
+
+    from stereospike_tpu_torch import cli
+    from stereospike_tpu_torch.streaming import StreamingEvaluator
+    from stereospike_tpu_torch.train import loop
+
+    rng = np.random.default_rng(7)
+    streams = []
+    for e in range(len(eyes)):
+        n = (n_windows + 1) * EVENTS_PER_WINDOW
+        t = 1.7e9 + np.sort(rng.uniform(0, 0.05 * (n_windows + 1), n))
+        ev = np.stack([rng.integers(0, FLAGSHIP_HW[1], n), rng.integers(0, FLAGSHIP_HW[0], n),
+                       t, rng.integers(0, 2, n)], axis=1).astype(np.float64)
+        streams.append([(e, chunk) for chunk in np.array_split(ev, 8 * (n_windows + 1))])
+    # the windows the wire assembles; stop at the packet that completes window N
+    asm = sources._WindowAssembler(eyes, 0.05)
+    packets, windows = [], []
+    for eye, ev in (p for group in zip(*streams) for p in group):
+        if len(windows) == n_windows:
+            break
+        packets.append((eye, ev))
+        t_base = float(ev[0, 2])
+        wire = ev.astype(np.float32).astype(np.float64)
+        wire[:, 2] = (ev[:, 2] - t_base).astype(np.float32).astype(np.float64) + t_base
+        asm.add(eyes[eye], wire)
+        while asm.ready():
+            windows.append(asm.emit())
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    replies, errors = [], []
+    thread = threading.Thread(target=_producer, args=(sources.send_events, sources.recv_depth,
+                                                      port, packets, n_windows, replies,
+                                                      errors), daemon=True)
+    thread.start()
+    argv = ["stream", *common, "--model", model, "--listen", f"127.0.0.1:{port}", "--reply",
+            "--n-windows", str(n_windows)]
+    result, fwd, _, wall = _cli_run(torch, ck, argv, f"stream --listen --reply {model}")
+    thread.join(60)
+    if thread.is_alive() or errors:
+        raise SystemExit(f"[serving] {model} producer: {errors or 'still running'}")
+    _expect(f"{model} windows served", result["n_windows"], n_windows, "serving")
+    _expect(f"{model} replies", len(replies), n_windows, "serving")
+    _expect(f"{model} fire launches", fwd, 13 * n_windows, "serving")
+    cfg = cli.build_config(cli.build_parser().parse_args(argv))
+    model_cfg = loop.build_model_config(cfg)
+    direct = StreamingEvaluator(loop._load_params(cfg, model_cfg, "best.pt", "cuda"), model_cfg,
+                                eyes=eyes, reset_each_window=False)
+    saved = ck.multistep_fire.launches
+    diff = max(float(np.abs(r - direct.push(w)[None, ..., 0]).max())
+               for r, w in zip(replies, windows))
+    ck.multistep_fire.launches = saved
+    log(f"[serving] {model}: {n_windows} replies against a direct evaluator, max |diff| "
+        f"{diff} (tolerance 0)")
+    if diff != 0.0:
+        raise SystemExit(f"[serving] {model}: socket replies differ from the direct evaluator")
+    return {"result": result, "launches": fwd, "wall_s": wall, "max_abs_diff": diff}
+
+
+def serving_phase(torch, ck, cfg, trained: Path) -> dict:
+    """The rest of serving on the card: 8 cameras in one batched step,
+    trained weights through ``--which`` and ``--import-pth``, the loopback
+    SPKE socket with replies, an AEDAT 3.1 recording, and ``.ssx``
+    artifacts (export, ``from_artifact``, ``stream --artifact``)."""
+    import shutil
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereospike_tpu_torch import cli, sources
+    from stereospike_tpu_torch.streaming import StreamingEvaluator
+    from stereospike_tpu_torch.train import loop
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_"))
+    torch.backends.cudnn.deterministic = True  # each comparison below differs only where stated
+    try:
+        hw = ",".join(map(str, FLAGSHIP_HW))
+        common = ["--device", "cuda", "--in-hw", hw, "--seed", "0", "--compute-dtype", "float32",
+                  "--tensorboard", "false", "--checkpoint-dir", str(trained)]
+        row = {}
+
+        # trained weights: --which best.pt, and --import-pth of the same tensors
+        def stream_depths(extra, tag):
+            args = cli.build_parser().parse_args(["stream", "--synthetic", "--n-windows",
+                                                  str(N_WINDOWS), *common, *extra])
+            depths = []
+            ck.multistep_fire.launches = 0
+            res = loop.stream_loop(cli.build_config(args), synthetic=True,
+                                   n_windows=args.n_windows, pipeline=args.pipeline,
+                                   events_per_window=args.events_per_window, which=args.which,
+                                   device="cuda", depths=depths)
+            torch.cuda.synchronize()
+            _expect(f"{tag} fire launches", ck.multistep_fire.launches, 13 * N_WINDOWS,
+                    "serving")
+            _expect(f"{tag} windows", len(depths), N_WINDOWS, "serving")
+            log(f"[serving] stream {tag}: {json.dumps(res)}")
+            return res, depths
+
+        base = cli.build_config(cli.build_parser().parse_args(["stream", *common]))
+        model_cfg = loop.build_model_config(base)
+        params = loop._load_params(base, model_cfg, "best.pt", "cuda")
+        pth = work / "trained.pth"
+        torch.save({k: v.detach().cpu() for k, v in params.items()}, pth)
+        which, d_which = stream_depths(["--which", "best.pt"], "--which best.pt")
+        _, d_pth = stream_depths(["--import-pth", str(pth), "--which", "absent.pt"],
+                                 "--import-pth")
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(d_which, d_pth))
+        if diff != 0.0:
+            raise SystemExit(f"[serving] --which best.pt and --import-pth differ by {diff}")
+        row["s1"] = {k: which[k] for k in ("interval_ms_mean", "interval_ms_p99")}
+        row["trained_which_vs_pth_max_abs_diff"] = diff
+
+        # 8 cameras in one batched step, float32 and bf16, against 1-stream evaluators
+        windows = _serving_windows(N_WINDOWS, SERVE_STREAMS)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            torch.cuda.reset_peak_memory_stats()
+            ev = StreamingEvaluator(params, model_cfg, n_streams=SERVE_STREAMS, pipeline=1,
+                                    reset_each_window=False, compute_dtype=dtype)
+            depths, lat, launches, seconds = _serve_timed(torch, ck, ev, windows)
+            _expect(f"S={SERVE_STREAMS} {name} fire launches", launches, 13 * N_WINDOWS,
+                    "serving")
+            if len(depths) != N_WINDOWS or any(d.shape != (SERVE_STREAMS, *FLAGSHIP_HW, 1)
+                                               or not np.isfinite(d).all() for d in depths):
+                raise SystemExit(f"[serving] S={SERVE_STREAMS} {name}: bad depths")
+            out = {**_interval(lat), "launches": launches,
+                   "stream_windows_per_s": SERVE_STREAMS * (N_WINDOWS - 1) / seconds,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            # stream s against a 1-stream evaluator fed stream s's windows
+            saved = ck.multistep_fire.launches
+            worst = 0.0
+            for s in range(SERVE_STREAMS):
+                one = StreamingEvaluator(params, model_cfg, reset_each_window=False,
+                                         compute_dtype=dtype)
+                for i, win in enumerate(windows):
+                    worst = max(worst, float(np.abs(one.push(win[s]) - depths[i][s]).max()))
+            ck.multistep_fire.launches = saved
+            out["per_stream_max_abs_diff"] = worst
+            tol = SERVE_STREAM_TOL[name]
+            log(f"[serving] S={SERVE_STREAMS} {name}: {json.dumps(out)}; stream s vs a "
+                f"1-stream evaluator max |diff| {worst} (tolerance {tol})")
+            if worst > tol:
+                raise SystemExit(f"[serving] S={SERVE_STREAMS} {name}: a stream differs from "
+                                 f"its 1-stream evaluator by {worst} > {tol}")
+            row[f"s{SERVE_STREAMS}_{name}"] = out
+            # the fire kernel's and the device's time per window (torch.profiler)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for win in windows[:5]:
+                    ev.push(win)
+                while ev.flush() is not None:
+                    pass
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+            dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            fire = [e for e in dev if "fire_fwd_kernel" in e.name]
+            if dev and len(fire) != 13 * 5:
+                raise SystemExit(f"[serving] {len(fire)} fire kernels in 5 S=8 windows")
+            out["fire_path_ms"] = (sum(e.time_range.elapsed_us() for e in fire) / 5e3
+                                   if dev else None)
+            out["busy_ms"] = _busy_ms(dev) / 5 if dev else None
+            out["profiled_wall_ms"] = wall_ms
+            # x, v0 in and spikes, v_T out at T=1: 4·M values
+            m = SERVE_STREAMS * sum(mm for _, mm in site_sizes(cfg))
+            elem = torch.empty(0, dtype=dtype).element_size()
+            out["fire_bound_ms"] = 4 * m * elem / HBM_BYTES_PER_S * 1e3
+            log(f"[serving] S={SERVE_STREAMS} {name} profiled window: wall {wall_ms:.3f} "
+                f"ms, busy {out['busy_ms']} ms, fire_fwd {out['fire_path_ms']} ms "
+                f"(bound {out['fire_bound_ms']:.4f} ms)")
+            del ev
+
+        # the loopback socket, monocular and binocular
+        # (the monocular model from seed 0: the trained checkpoint is binocular)
+        row["socket"] = {
+            model: _socket_case(torch, ck, sources, model, eyes, [*common, *extra],
+                                SOCKET_WINDOWS)
+            for model, eyes, extra in (
+                ("stereospike_monocular", ("left",), ["--checkpoint-dir", str(work / "mono")]),
+                ("stereospike", ("left", "right"), []))}
+
+        # a stereo AEDAT 3.1 recording (written from synthetic events)
+        rng = np.random.default_rng(11)
+        paths = []
+        for eye in ("left", "right"):
+            n = AEDAT_WINDOWS * EVENTS_PER_WINDOW
+            ev = np.stack([rng.integers(0, FLAGSHIP_HW[1], n), rng.integers(0, FLAGSHIP_HW[0], n),
+                           5.0 + np.sort(rng.uniform(0, 0.05 * AEDAT_WINDOWS, n)),
+                           rng.integers(0, 2, n)], axis=1).astype(np.float64)
+            paths.append(str(work / f"{eye}.aedat"))
+            sources.write_aedat31(paths[-1], ev)
+        # every window of the recording: its full windows and the partial tail
+        n_aedat = len(list(sources.AedatFileSource(dict(zip(("left", "right"), paths)))))
+        if n_aedat < AEDAT_WINDOWS:
+            raise SystemExit(f"[serving] the recording holds {n_aedat} windows")
+        aedat, afwd, _, _ = _cli_run(torch, ck, ["stream", *common, "--aedat", ",".join(paths),
+                                                 "--n-windows", "0"], "stream --aedat")
+        _expect("AEDAT windows", aedat["n_windows"], n_aedat, "serving")
+        _expect("AEDAT late events", aedat["late_events"], 0, "serving")
+        _expect("AEDAT fire launches", afwd, 13 * n_aedat, "serving")
+        row["aedat"] = aedat
+
+        # artifacts: float32 at S=1, bf16 at S=4
+        arts = {}
+        for name, streams, dtype in (("float32", 1, "float32"), ("bf16_s4", 4, "bfloat16")):
+            path = work / f"{name}.ssx"
+            argv = ["export-serving", *common, "--out", str(path), "--which", "best.pt",
+                    "--n-streams", str(streams), "--compute-dtype", dtype]
+            exp, _, _, export_s = _cli_run(torch, ck, argv, f"export-serving {name}")
+            arts[name] = {"bytes": exp["bytes"], "export_s": export_s, "path": path}
+        served = StreamingEvaluator.from_artifact(str(arts["float32"]["path"]),
+                                                  reset_each_window=False)
+        live = StreamingEvaluator(params, model_cfg, reset_each_window=False)
+        five = [w[0] for w in windows[:5]]
+        a_depths, _, a_launches, _ = _serve_timed(torch, ck, served, [[w] for w in five], False)
+        saved = ck.multistep_fire.launches
+        l_depths = [live.push(w) for w in five]
+        ck.multistep_fire.launches = saved
+        _expect("artifact fire launches", a_launches, 13 * 5, "serving")
+        if not all(np.array_equal(a, b) for a, b in zip(a_depths, l_depths, strict=True)):
+            raise SystemExit("[serving] the float32 artifact differs from the live evaluator")
+        if served.binning_dropped != live.binning_dropped:
+            raise SystemExit("[serving] the artifact's rejected count differs from the live one")
+        four = StreamingEvaluator.from_artifact(str(arts["bf16_s4"]["path"]), pipeline=1,
+                                                reset_each_window=False)
+        q_depths, _, q_launches, _ = _serve_timed(torch, ck, four,
+                                                  [w[:4] for w in windows[:5]])
+        _expect("bf16 S=4 artifact fire launches", q_launches, 13 * 5, "serving")
+        if any(d.shape != (4, *FLAGSHIP_HW, 1) or not np.isfinite(d).all() for d in q_depths):
+            raise SystemExit("[serving] bf16 S=4 artifact: bad depths")
+        del served, four, live
+        art_run, art_fwd, _, _ = _cli_run(torch, ck, [
+            "stream", *common, "--artifact", str(arts["float32"]["path"]), "--synthetic",
+            "--n-windows", str(N_WINDOWS)], "stream --artifact")
+        _expect("stream --artifact windows", art_run["n_windows"], N_WINDOWS, "serving")
+        _expect("stream --artifact fire launches", art_fwd, 13 * N_WINDOWS, "serving")
+        row["artifacts"] = {k: {kk: vv for kk, vv in v.items() if kk != "path"}
+                            for k, v in arts.items()}
+        row["artifact_stream"] = art_run
+        row["artifact_vs_live"] = "equal bit for bit"
+        print(json.dumps({"serving": row}), flush=True)
+        return row
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1213,7 +1557,11 @@ def main() -> int:
     ann = ann_phase(torch, cfg)
     log(json.dumps({"multistep": ms, "eval": ev, "taps": taps, "ann": ann}))
     torch.cuda.empty_cache()
-    drv = driver_phase(torch, ck, tr["b16"]["frames_per_s"])
+    trained = ROOT / "build" / "chip_smoke" / "trained"
+    drv = driver_phase(torch, ck, tr["b16"]["frames_per_s"], trained)
+    torch.cuda.empty_cache()
+    srv = serving_phase(torch, ck, cfg, trained)
+    s8 = srv[f"s{SERVE_STREAMS}_float32"]
     # the fire kernels' bound on the layer-major bf16 step: every site's
     # [T, M] read and written once; forward x, v0 in and spikes, v_T out,
     # (2T+2)·M values; backward x, v0, gs in and gx, gv0 out, (3T+2)·M
@@ -1256,6 +1604,12 @@ def main() -> int:
         "layer_major_path_ms": ms["profile"].get("fire_fwd_ms"),
         "layer_major_bound_ms": lm_fwd_bound,
         "eval_launches": [ev["T1"]["fire_fwd_launches"], ev[f"T{MS_T}"]["fire_fwd_launches"]],
+        # serving 8 cameras in one batched float32 step: launches over 20
+        # windows (13 each, M = 8 × site) and the 13 launches' device time
+        # per window (torch.profiler) beside their bound
+        "serving_s8_launches": s8["launches"],
+        "serving_s8_path_ms": s8.get("fire_path_ms"),
+        "serving_s8_bound_ms": s8.get("fire_bound_ms"),
         "sites": sites,
     }, {
         "name": "fire_bwd",

@@ -1,19 +1,22 @@
 """Command-line interface: ``python -m stereospike_tpu_torch.cli <command>``
 (counterpart of ``stereospike_tpu/cli.py``).
 
-    train         a training run (epochs, validation, best/latest checkpoints)
-    eval          test-set evaluation of a checkpoint
-    firing-rates  per-layer spike densities over the test set
-    stream        streaming serving: synthetic event windows in, depth maps out
+    train           a training run (epochs, validation, best/latest checkpoints)
+    eval            test-set evaluation of a checkpoint
+    firing-rates    per-layer spike densities over the test set
+    stream          streaming serving: event windows in (synthetic, a TCP
+                    feed, an AEDAT 3.1 recording, a DENSE directory), depth
+                    maps out, from a checkpoint, a ``.pth`` or an artifact
+    export-serving  the serving step as a self-contained ``.ssx`` artifact
 
 Every ``TrainConfig`` field is a flag (``--batch-size 16``, ``--in-hw
 260,346``, ``--augment false``), as in the JAX CLI; also ``--config
 file.json`` (flags override it), ``--save-config path`` (write the resolved
 config and exit), ``--synthetic`` (a generated on-disk fixture: no MVSEC
-download, no h5py), ``--max-steps``, ``--which`` (the checkpoint ``eval``
-and ``firing-rates`` read, ``best.pt`` by default) and ``--device``
-(``cuda`` unless given). Each command prints its loop's result as one JSON
-line.
+download, no h5py), ``--max-steps``, ``--which`` (the checkpoint ``eval``,
+``firing-rates``, ``stream`` and ``export-serving`` read, ``best.pt`` by
+default) and ``--device`` (``cuda`` unless given). Each command prints its
+loop's result as one JSON line.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import typing
 from typing import List, Optional
@@ -32,6 +36,7 @@ COMMANDS = {
     "eval": "evaluate a checkpoint on the test set",
     "firing-rates": "profile per-layer spike densities",
     "stream": "streaming serving: events in, depth maps out",
+    "export-serving": "export the serving step as a self-contained .ssx artifact",
 }
 
 
@@ -85,15 +90,45 @@ def build_parser() -> argparse.ArgumentParser:
                        help="write the resolved config to this path and exit")
         p.add_argument("--device", type=str, default="cuda",
                        help="torch device to run on (default cuda)")
-        if name in ("eval", "firing-rates"):
+        if name != "train":
             p.add_argument("--which", type=str, default="best.pt",
-                           help="checkpoint file in --checkpoint-dir to evaluate")
+                           help="checkpoint file in --checkpoint-dir to read")
         if name == "stream":
-            p.add_argument("--n-windows", type=int, default=20, help="windows to serve")
+            p.add_argument("--n-windows", type=int, default=20,
+                           help="windows to serve; with --listen, 0 serves until producers "
+                                "stop reconnecting")
             p.add_argument("--pipeline", type=int, default=1,
                            help="windows in flight (0 = synchronous)")
             p.add_argument("--events-per-window", type=int, default=20000,
                            help="synthetic events per eye per window")
+            p.add_argument("--events-dir", type=str, default=None,
+                           help="DENSE-format events/data dir (one .npy file per window; "
+                                "monocular)")
+            p.add_argument("--aer-format", type=str, default="TXYP", choices=("TXYP", "XYTP"),
+                           help="column order of the events-dir .npy files")
+            p.add_argument("--aedat", type=str, default=None,
+                           help="replay an AEDAT 3.1 recording; one path, or left,right "
+                                "paths for a stereo rig")
+            p.add_argument("--realtime", action="store_true",
+                           help="pace --aedat replay to the recording cadence")
+            p.add_argument("--listen", type=str, default=None,
+                           help="accept a live SPKE-protocol TCP event feed on host:port "
+                                "(or just a port); see stereospike_tpu_torch.sources")
+            p.add_argument("--reply", action="store_true",
+                           help="send depth maps back to the --listen producer")
+            p.add_argument("--artifact", type=str, default=None,
+                           help="serve from an exported .ssx artifact (export-serving) "
+                                "instead of live params")
+            p.add_argument("--save-video", type=str, default=None,
+                           help="not ported: needs cv2 (ROADMAP A.9)")
+        if name == "export-serving":
+            p.add_argument("--out", type=str, required=True, help="output .ssx artifact path")
+            p.add_argument("--block", type=int, default=1 << 16,
+                           help="events per eye per window (pad/truncate)")
+            p.add_argument("--n-streams", type=int, default=1,
+                           help="cameras served per batched step")
+            p.add_argument("--window-s", type=float, default=0.05,
+                           help="binning window the step is built for")
         _add_config_flags(p)
     return parser
 
@@ -130,12 +165,51 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.command == "firing-rates":
         out = loop.firing_rates_loop(cfg, synthetic=args.synthetic, which=args.which,
                                      device=args.device)
+    elif args.command == "stream":
+        out = loop.stream_loop(cfg, synthetic=args.synthetic, events_dir=args.events_dir,
+                               n_windows=args.n_windows, pipeline=args.pipeline,
+                               events_per_window=args.events_per_window,
+                               save_video=args.save_video, aer_format=args.aer_format,
+                               listen=args.listen, reply=args.reply, artifact=args.artifact,
+                               aedat=args.aedat, realtime=args.realtime, which=args.which,
+                               device=args.device)
     else:
-        out = loop.stream_loop(cfg, synthetic=args.synthetic, n_windows=args.n_windows,
-                               pipeline=args.pipeline,
-                               events_per_window=args.events_per_window, device=args.device)
+        out = _export_serving(cfg, args)
     print(json.dumps(out))
     return 0
+
+
+def _export_serving(cfg: TrainConfig, args: argparse.Namespace) -> dict:
+    """The serving step (voxelize → stateful forward, weights baked in) as
+    a ``.ssx`` artifact for ``--device`` (``deploy.py``)."""
+    from stereospike_tpu_torch.deploy import export_serving_artifact
+    from stereospike_tpu_torch.streaming import StreamingEvaluator
+    from stereospike_tpu_torch.train.checkpoint import has_checkpoint
+    from stereospike_tpu_torch.train.loop import (
+        _compute_dtype,
+        _load_params,
+        build_model_config,
+        is_ann_model,
+    )
+
+    if is_ann_model(cfg.model):
+        raise ValueError("serving artifacts wrap the stateful SNN models; ANN checkpoints "
+                         "are not served")
+    # _load_params falls back to a fresh init; an artifact of random weights
+    # that looks valid is not: a mistyped --checkpoint-dir fails here
+    if not (cfg.import_pth or has_checkpoint(cfg.checkpoint_dir, args.which)):
+        raise FileNotFoundError(f"no checkpoint {args.which!r} in {cfg.checkpoint_dir!r} and "
+                                "no --import-pth; refusing to export fresh random-init weights")
+    model_cfg = build_model_config(cfg)
+    params = _load_params(cfg, model_cfg, args.which, args.device)
+    eyes = ("left",) if cfg.model == "stereospike_monocular" else ("left", "right")
+    evaluator = StreamingEvaluator(params, model_cfg, eyes=eyes, nfpdm=cfg.nfpdm,
+                                   window=args.window_s, block=args.block,
+                                   n_streams=args.n_streams, compute_dtype=_compute_dtype(cfg),
+                                   device=args.device)
+    manifest = export_serving_artifact(evaluator, args.out, extra_meta={"model": cfg.model})
+    return {"exported": args.out, "bytes": os.path.getsize(args.out),
+            **{k: manifest[k] for k in ("platforms", "eyes", "block", "n_streams")}}
 
 
 if __name__ == "__main__":

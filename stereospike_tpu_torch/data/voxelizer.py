@@ -28,10 +28,12 @@ def rectify_events(events: torch.Tensor, x_map: torch.Tensor, y_map: torch.Tenso
                    height: int = FRAME_H) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rectify event coordinates through per-camera maps ``[H, W]``.
 
-    Returns (rectified events [N, 4], valid mask [N]); events that map
-    outside the H×W field of view (strict ``<``) are masked out."""
-    x = events[:, 0].to(torch.int32)
-    y = events[:, 1].to(torch.int32)
+    ``events`` is ``[N, 4]``, or ``[S, N, 4]`` for S streams of one camera
+    (the batched form of the JAX package's vmap over streams). Returns
+    (rectified events of the same shape, valid mask ``[..., N]``); events
+    that map outside the H×W field of view (strict ``<``) are masked out."""
+    x = events[..., 0].to(torch.int32)
+    y = events[..., 1].to(torch.int32)
     in_raw = (x >= 0) & (x < width) & (y >= 0) & (y < height)
     xc = x.clamp(0, width - 1).long()
     yc = y.clamp(0, height - 1).long()
@@ -41,23 +43,22 @@ def rectify_events(events: torch.Tensor, x_map: torch.Tensor, y_map: torch.Tenso
     if valid is not None:
         ok = ok & valid
     rect = torch.stack([x_rect.to(events.dtype), y_rect.to(events.dtype),
-                        events[:, 2], events[:, 3]], dim=1)
+                        events[..., 2], events[..., 3]], dim=-1)
     return rect, ok
 
 
-def events_to_frames(events: torch.Tensor, valid: torch.Tensor,
-                     t0: Union[float, torch.Tensor], dt: Union[float, torch.Tensor], *,
-                     n_frames: int, height: int = FRAME_H, width: int = FRAME_W,
-                     polarity_encoding: str = "binary") -> torch.Tensor:
-    """Scatter events into ``[n_frames, height, width, 2]`` float32 counts.
-
-    Frame index = floor((t - t0)/dt), computed in float32. ``polarity_encoding``:
-    'binary' (ON p == 1, OFF otherwise) or 'signed' (ON p == +1, OFF p == -1,
-    p == 0 ignored)."""
-    x = torch.floor(events[:, 0]).long()
-    y = torch.floor(events[:, 1]).long()
-    t = events[:, 2]
-    p = events[:, 3]
+def events_to_frames_batched(events: torch.Tensor, valid: torch.Tensor,
+                             t0: Union[float, torch.Tensor], dt: Union[float, torch.Tensor], *,
+                             n_frames: int, height: int = FRAME_H, width: int = FRAME_W,
+                             polarity_encoding: str = "binary") -> torch.Tensor:
+    """:func:`events_to_frames` for S streams at once: ``events`` ``[S, N,
+    4]`` and ``valid`` ``[S, N]`` → ``[S, n_frames, height, width, 2]``.
+    Stream s scatters into its own block of bins (an offset of s times a
+    stream's bins), so one ``index_add_`` bins every stream."""
+    x = torch.floor(events[..., 0]).long()
+    y = torch.floor(events[..., 1]).long()
+    t = events[..., 2]
+    p = events[..., 3]
     f = torch.floor((t - t0) / dt).long()
     pol = (p != 1).long()
     if polarity_encoding == "binary":
@@ -68,12 +69,29 @@ def events_to_frames(events: torch.Tensor, valid: torch.Tensor,
         raise ValueError(polarity_encoding)
     ok = (ok & (f >= 0) & (f < n_frames) & (x >= 0) & (x < width)
           & (y >= 0) & (y < height))
+    streams = events.shape[0]
     n_bins = n_frames * height * width * 2
-    flat = ((f * height + y) * width + x) * 2 + pol
-    flat = torch.where(ok, flat, torch.full_like(flat, n_bins))  # dump bin
-    counts = torch.zeros(n_bins + 1, dtype=torch.float32, device=events.device)
-    counts.index_add_(0, flat, torch.ones_like(t, dtype=torch.float32))
-    return counts[:-1].view(n_frames, height, width, 2)
+    offset = torch.arange(streams, device=events.device)[:, None] * n_bins
+    flat = ((f * height + y) * width + x) * 2 + pol + offset
+    flat = torch.where(ok, flat, torch.full_like(flat, streams * n_bins))  # dump bin
+    counts = torch.zeros(streams * n_bins + 1, dtype=torch.float32, device=events.device)
+    counts.index_add_(0, flat.reshape(-1), torch.ones_like(t, dtype=torch.float32).reshape(-1))
+    return counts[:-1].view(streams, n_frames, height, width, 2)
+
+
+def events_to_frames(events: torch.Tensor, valid: torch.Tensor,
+                     t0: Union[float, torch.Tensor], dt: Union[float, torch.Tensor], *,
+                     n_frames: int, height: int = FRAME_H, width: int = FRAME_W,
+                     polarity_encoding: str = "binary") -> torch.Tensor:
+    """Scatter events ``[N, 4]`` into ``[n_frames, height, width, 2]``
+    float32 counts.
+
+    Frame index = floor((t - t0)/dt), computed in float32. ``polarity_encoding``:
+    'binary' (ON p == 1, OFF otherwise) or 'signed' (ON p == +1, OFF p == -1,
+    p == 0 ignored)."""
+    return events_to_frames_batched(events[None], valid[None], t0, dt, n_frames=n_frames,
+                                    height=height, width=width,
+                                    polarity_encoding=polarity_encoding)[0]
 
 
 LIDAR_FPS = 20.0  # ground-truth depth maps at 20 Hz (utils.py:9)

@@ -9,13 +9,17 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface, at first use, under ``build/stereospike_tpu_torch/`` beside the
 package, and loaded with ``ctypes``.
 
-:func:`multistep_fire` runs the forward; when a gradient is wanted it goes
-through one ``torch.autograd.Function`` whose backward is
-:func:`multistep_fire_backward`. Each wrapper launches its kernel for a
-CUDA tensor and raises if it cannot; it takes its plain version
+:func:`multistep_fire` runs the forward through one registered operator,
+``stereospike::fire_fwd`` (:data:`fire_fwd_op`, a ``torch.library``
+custom op, so that ``torch.export`` can trace a step through it and an
+exported program calls it); when a gradient is wanted it goes through one
+``torch.autograd.Function`` whose forward is that op and whose backward is
+:func:`multistep_fire_backward`. Each launches its kernel for a CUDA tensor
+and raises if it cannot; it takes its plain version
 (:func:`multistep_fire_reference`, :func:`multistep_fire_backward_reference`)
-only for a tensor on the CPU. ``multistep_fire.launches`` and
-``multistep_fire_backward.launches`` count kernel launches.
+only for a tensor on the CPU. ``multistep_fire.launches`` (counted inside
+the op's CUDA implementation, so an exported program's launches count too)
+and ``multistep_fire_backward.launches`` count kernel launches.
 
 Every reset mode of the ``snn/neurons.py`` cells is computed: the hard
 reset to ``v_reset`` (the LIF/PLIF charge relaxing towards it), the soft
@@ -178,12 +182,12 @@ def _vectorized(steps: int, m: int, element_size: int, *tensors: Optional[torch.
             and (steps == 1 or m % per_vec == 0))
 
 
-def _fire_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
-                  v_threshold: float, v_reset: Optional[float],
-                  is_if: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel for a CUDA tensor, the plain version for a CPU one."""
-    if x.device.type == "cpu":
-        return _reference_forward(x, v0, leak, v_threshold, v_reset, is_if)
+def _launch_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
+                    v_threshold: float, v_reset: Optional[float],
+                    is_if: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/fire_fwd.cu`` on x's stream: the CUDA implementation of
+    the ``stereospike::fire_fwd`` op, and the only place that counts a
+    forward launch."""
     leak32 = _check_cuda(x, leak, is_if, v0)
     x = x.detach().contiguous()
     v0 = v0.detach().contiguous()
@@ -226,6 +230,30 @@ def _reference_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.T
                                       heaviside, detach_reset=True)
             spikes[t] = s
     return spikes, v.to(v0.dtype)
+
+
+# The forward as one registered operator, ``stereospike::fire_fwd``, so that
+# torch.export (whose FakeTensors have no data_ptr) traces a step through
+# it and an exported program calls it: CUDA tensors launch the kernel, CPU
+# tensors run the plain version, FakeTensors get the output shapes.
+fire_fwd_op = torch.library.custom_op(
+    "stereospike::fire_fwd", _launch_forward, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor v0, Tensor? leak, float v_threshold, float? v_reset, "
+           "bool is_if) -> (Tensor, Tensor)")
+fire_fwd_op.register_kernel("cpu")(_reference_forward)
+
+
+@fire_fwd_op.register_fake
+def _(x, v0, leak, v_threshold, v_reset, is_if):
+    return x.new_empty(x.shape), v0.new_empty(v0.shape)
+
+
+def _fire_forward(x: torch.Tensor, v0: torch.Tensor, leak: Optional[torch.Tensor],
+                  v_threshold: float, v_reset: Optional[float],
+                  is_if: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward through the registered op."""
+    return fire_fwd_op(x, v0, leak, float(v_threshold),
+                       None if v_reset is None else float(v_reset), bool(is_if))
 
 
 class _Fire(torch.autograd.Function):

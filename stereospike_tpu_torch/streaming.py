@@ -3,12 +3,19 @@
 
 Raw AER events are pushed into fixed-capacity host ring buffers as they
 arrive. Every window (50 ms, the ground-truth cadence) the buffered events
-are padded to a fixed block, uploaded, voxelized on the device and fed
-through one step of the StereoSpike forward, which carries the membrane
-state across windows when ``reset_each_window=False``. The device work of
-a window is queued without waiting for the host; with ``pipeline=N`` the
-depth map comes back N windows later, so its copy to the host overlaps the
-next windows' compute.
+are padded to a fixed block with a valid mask, uploaded, voxelized on the
+device and fed through one step of the StereoSpike forward, which carries
+the membrane state across windows when ``reset_each_window=False``. That
+per-window computation is one function of tensors, :class:`ServingStep`
+``(state, events, valids) -> (depth, new_state, rejected)``, which
+``push`` calls and ``deploy.export_serving_artifact`` exports. The device
+work of a window is queued without waiting for the host; with
+``pipeline=N`` the depth map comes back N windows later, so its copy to
+the host overlaps the next windows' compute.
+
+``n_streams=S`` serves S cameras in one batched step: per-stream ring
+buffers and membranes, one voxelizer pass over ``[S, block, 4]`` per eye,
+the forward at B = S.
 
 Typical use::
 
@@ -20,15 +27,16 @@ Typical use::
 from __future__ import annotations
 
 import collections
-from typing import Deque, Dict, Optional, Tuple, Union
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from stereospike_tpu_torch.data.voxelizer import events_to_frames, rectify_events
+from stereospike_tpu_torch.data.voxelizer import events_to_frames_batched, rectify_events
 from stereospike_tpu_torch.models.stereospike import (
     FireFn,
     StereoSpikeConfig,
+    State,
     forward,
     init_state,
 )
@@ -95,10 +103,62 @@ class EventRingBuffer:
         return out
 
 
-class _Pending:
-    """A window's depth on its way to the host."""
+class ServingStep(torch.nn.Module):
+    """One window's device work as a function of tensors, the JAX
+    evaluator's jitted step: ``(state, events, valids) -> (depth [S, H, W,
+    1] float32, new_state, rejected)``.
 
-    def __init__(self, depth: torch.Tensor):
+    ``events`` is ``{eye: float32 [S, block, 4]}`` (x, y, window-relative
+    t, p; zero-padded), ``valids`` ``{eye: bool [S, block]}``; ``state``
+    the membranes at B = S in the compute dtype. Each eye is rectified
+    (when it has maps) and binned for all S streams at once; ``rejected``
+    counts the valid rows that no bin took (timestamp outside [0, window),
+    out of view before or after rectification), as a float32 scalar. The
+    weights and maps are plain tensor attributes, so ``torch.export`` bakes
+    them into the program as constants."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: StereoSpikeConfig, *,
+                 eyes: Tuple[str, ...], nfpdm: int, window: float,
+                 maps: Dict[str, Optional[Tuple[torch.Tensor, torch.Tensor]]],
+                 compute_dtype: torch.dtype, fire_fn: FireFn = multistep_fire):
+        super().__init__()
+        self.params = params
+        self.cfg = cfg
+        self.eyes = eyes
+        self.nfpdm = nfpdm
+        self.dt = window / nfpdm
+        self.maps = maps
+        self.compute_dtype = compute_dtype
+        self.fire_fn = fire_fn
+
+    def forward(self, state: State, events: Dict[str, torch.Tensor],
+                valids: Dict[str, torch.Tensor]):
+        h, w = self.cfg.in_hw
+        frames = []
+        rejected = None
+        for e in self.eyes:
+            ev, ok = events[e], valids[e]
+            if self.maps[e] is not None:
+                ev, ok = rectify_events(ev, *self.maps[e], ok, width=w, height=h)
+            fr = events_to_frames_batched(ev, ok, 0.0, self.dt, n_frames=self.nfpdm,
+                                          height=h, width=w)
+            # every binned event adds one count, so the gap to the valid input
+            # rows (before rectification: out-of-view rejects must count) is
+            # what the window silently rejected
+            dropped = valids[e].sum() - fr.sum()
+            rejected = dropped if rejected is None else rejected + dropped
+            # [S, nfpdm, H, W, 2] -> [S, H, W, nfpdm*2] (frame, polarity) stacking
+            frames.append(fr.permute(0, 2, 3, 1, 4).reshape(fr.shape[0], h, w, -1))
+        frame = torch.cat(frames, dim=-1).to(self.compute_dtype)  # [S, H, W, C]
+        depths, _, new_state = forward(self.params, frame, self.cfg, state,
+                                       fire_fn=self.fire_fn)
+        return depths[0].float(), new_state, rejected
+
+
+class _Pending:
+    """A window's depth [S, H, W, 1] on its way to the host."""
+
+    def __init__(self, depth: torch.Tensor, stacked: bool):
         if depth.is_cuda:
             self.host = torch.empty(depth.shape, dtype=depth.dtype, pin_memory=True)
             self.host.copy_(depth, non_blocking=True)
@@ -106,11 +166,13 @@ class _Pending:
             self.done.record()
         else:
             self.host, self.done = depth, None
+        self.stacked = stacked
 
     def result(self) -> np.ndarray:
+        """[S, H, W, 1] for a list input (even at S = 1), [H, W, 1] for a dict."""
         if self.done is not None:
             self.done.synchronize()
-        return self.host.numpy()
+        return self.host.numpy() if self.stacked else self.host[0].numpy()
 
 
 class StreamingEvaluator:
@@ -121,12 +183,18 @@ class StreamingEvaluator:
     layout). Event timestamps must be window-relative (seconds since the
     window start).
 
+    ``n_streams > 1`` serves that many independent cameras in one batched
+    device step (per-stream ring buffers ``stream_buffers[s][eye]`` and
+    membranes; ``buffers`` is stream 0's). ``push`` then takes a list of
+    per-stream event dicts and returns ``[n_streams, H, W, 1]``.
+
     The window runs in ``compute_dtype`` (float32 when None): the parameters
     are cast once, here, and the membrane state lives in that dtype. Depths
     come back as float32 either way.
     ``device`` defaults to ``cuda`` and raises if there is no card: serving
     never falls back to the CPU by itself. ``fire_fn`` replaces the fused
     fire kernel (its plain version, for a comparison run).
+    :meth:`from_artifact` serves an exported ``.ssx`` artifact instead.
     """
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: StereoSpikeConfig, *,
@@ -134,7 +202,8 @@ class StreamingEvaluator:
                  eyes: Tuple[str, ...] = ("left", "right"), nfpdm: int = 1,
                  window: float = 0.05, block: int = 1 << 16,
                  reset_each_window: bool = True, buffer_capacity: int = 1 << 20,
-                 pipeline: int = 0, compute_dtype: Optional[torch.dtype] = None,
+                 pipeline: int = 0, n_streams: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = "cuda",
                  fire_fn: FireFn = multistep_fire):
         if len(eyes) * nfpdm * 2 != cfg.in_channels:
@@ -142,17 +211,32 @@ class StreamingEvaluator:
                 f"{len(eyes)} eyes x nfpdm={nfpdm} gives {len(eyes) * nfpdm * 2} "
                 f"channels; model expects {cfg.in_channels}")
         self.device = serving_device(device)
+        self.artifact = None
         self.cfg = cfg.for_inference()
-        self._dtype = compute_dtype or torch.float32
-        self.params = {k: (v.to(self.device, self._dtype) if v.is_floating_point()
+        self.compute_dtype = compute_dtype or torch.float32
+        self.params = {k: (v.to(self.device, self.compute_dtype) if v.is_floating_point()
                            else v.to(self.device)) for k, v in params.items()}
-        self.eyes = eyes
-        self.nfpdm = nfpdm
-        self.window = window
-        self.block = block
+        self._maps = {e: tuple(torch.as_tensor(np.asarray(m), dtype=torch.float32,
+                                               device=self.device) for m in maps[e])
+                      if maps and e in maps else None for e in eyes}
+        self.step = ServingStep(self.params, self.cfg, eyes=tuple(eyes), nfpdm=nfpdm,
+                                window=window, maps=self._maps,
+                                compute_dtype=self.compute_dtype, fire_fn=fire_fn)
+        self._serve(eyes, nfpdm, window, block, reset_each_window, buffer_capacity, pipeline,
+                    n_streams)
+
+    def _serve(self, eyes: Sequence[str], nfpdm: int, window: float, block: int,
+               reset_each_window: bool, buffer_capacity: int, pipeline: int,
+               n_streams: int) -> None:
+        """The runtime plumbing around ``self.step``, shared with
+        :meth:`from_artifact`."""
+        self.eyes = tuple(eyes)
+        self.nfpdm = int(nfpdm)
+        self.window = float(window)
+        self.block = int(block)
         self.reset_each_window = reset_each_window
         self.pipeline = int(pipeline)
-        self.fire_fn = fire_fn
+        self.n_streams = int(n_streams)
         # events the voxelizer rejected (timestamp outside [0, window), or
         # out of view after rectification), summed on the device and read
         # only when ``binning_dropped`` is: a read per window would wait for
@@ -160,43 +244,58 @@ class StreamingEvaluator:
         self._host_binning_dropped = 0
         self._drop_acc: Optional[torch.Tensor] = None
         self._pending: Deque[_Pending] = collections.deque()
-        self.buffers = {e: EventRingBuffer(buffer_capacity) for e in eyes}
-        self._maps = {e: tuple(torch.as_tensor(np.asarray(m), dtype=torch.float32,
-                                               device=self.device) for m in maps[e])
-                      if maps and e in maps else None for e in eyes}
-        self._state = self._init_state()
+        self.stream_buffers = [{e: EventRingBuffer(buffer_capacity) for e in self.eyes}
+                               for _ in range(self.n_streams)]
+        self.buffers = self.stream_buffers[0]  # the single-stream alias
+        self._state = self.init_state()
 
-    def _init_state(self) -> Dict[str, torch.Tensor]:
-        return init_state(self.cfg, 1, self._dtype, device=self.device)
+    @classmethod
+    def from_artifact(cls, path: str, *, buffer_capacity: int = 1 << 20, pipeline: int = 0,
+                      reset_each_window: bool = True) -> "StreamingEvaluator":
+        """Serve from an exported ``.ssx`` artifact (:mod:`deploy`) instead of
+        live params: the whole window step (rectification, voxelizer,
+        stateful forward, weights) is the artifact's exported program, and
+        its geometry (eyes, window, block, streams) comes from the
+        manifest; this class supplies the ring buffers, padding, uploads,
+        pipelining and drop accounting."""
+        from stereospike_tpu_torch.deploy import load_serving_artifact
+
+        art = load_serving_artifact(path)
+        m = art.meta
+        self = cls.__new__(cls)
+        self.artifact = art
+        self.cfg = self.params = None  # geometry comes from the manifest
+        self.device = art.device
+        self.compute_dtype = art.compute_dtype
+        self.step = art.step
+        self._serve(m["eyes"], m["nfpdm"], m["window_s"], m["block"], reset_each_window,
+                    buffer_capacity, pipeline, m["n_streams"])
+        return self
+
+    def init_state(self) -> State:
+        """Zero membranes for ``n_streams`` streams."""
+        if self.artifact is not None:
+            return self.artifact.init_state()
+        return init_state(self.cfg, self.n_streams, self.compute_dtype, device=self.device)
 
     def reset(self) -> None:
-        self._state = self._init_state()
+        self._state = self.init_state()
         self._pending.clear()
 
-    def _voxelize(self, ev: torch.Tensor, n_valid: int, eye: str):
-        h, w = self.cfg.in_hw
-        valid = torch.arange(self.block, device=self.device) < n_valid
-        if self._maps[eye] is not None:
-            ev, ok = rectify_events(ev, *self._maps[eye], valid, width=w, height=h)
-        else:
-            ok = valid
-        fr = events_to_frames(ev, ok, 0.0, self.window / self.nfpdm,
-                              n_frames=self.nfpdm, height=h, width=w)
-        # every binned event adds one count, so the gap to the valid input
-        # rows (before rectification: out-of-view rejects must count) is
-        # what the window silently rejected
-        dropped = n_valid - fr.sum()
-        # [nfpdm, H, W, 2] -> [H, W, nfpdm*2] (frame, polarity) stacking
-        return fr.permute(1, 2, 0, 3).reshape(h, w, -1), dropped
-
-    def _upload(self, raw: np.ndarray) -> Tuple[torch.Tensor, int]:
-        """Pad/truncate to ``block`` rows (keeping the newest) and copy to the
-        device without waiting for queued work."""
-        n = min(raw.shape[0], self.block)
-        host = torch.zeros(self.block, 4, dtype=torch.float32,
-                           pin_memory=self.device.type == "cuda")
-        host[:n] = torch.from_numpy(raw[-n:] if n else raw[:0])
-        return host.to(self.device, non_blocking=True), n
+    def _upload(self, raws: List[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each stream's rows padded/truncated to ``block`` (keeping the
+        newest) with its valid mask, as ``[S, block, 4]`` and ``[S, block]``,
+        copied to the device without waiting for queued work."""
+        pin = self.device.type == "cuda"
+        host = torch.zeros(len(raws), self.block, 4, dtype=torch.float32, pin_memory=pin)
+        valid = torch.zeros(len(raws), self.block, dtype=torch.bool, pin_memory=pin)
+        for s, raw in enumerate(raws):
+            n = min(raw.shape[0], self.block)
+            if n:
+                host[s, :n] = torch.from_numpy(raw[-n:])
+                valid[s, :n] = True
+        return (host.to(self.device, non_blocking=True),
+                valid.to(self.device, non_blocking=True))
 
     @property
     def binning_dropped(self) -> int:
@@ -207,34 +306,42 @@ class StreamingEvaluator:
         return self._host_binning_dropped
 
     @torch.no_grad()
-    def push(self, window_events: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
-        """Feed one window's events per eye; returns a depth map [H, W, 1].
+    def push(self, window_events: Union[Dict[str, np.ndarray], Sequence[Dict[str, np.ndarray]]]
+             ) -> Optional[np.ndarray]:
+        """Feed one window's events per eye; returns a depth map.
 
-        Each eye's events are padded/truncated to ``block`` rows (truncation
-        keeps the newest and is counted in ``buffers[eye].dropped``). With
-        ``pipeline=0`` the returned depth is this window's. With
-        ``pipeline=N >= 1`` up to N windows stay in flight and the oldest
-        finished depth is returned once the pipeline is full (``None`` for
-        the first N pushes; :meth:`flush` drains the tail).
+        A dict input returns ``[H, W, 1]`` (one stream only); a list of
+        ``n_streams`` per-stream dicts returns ``[n_streams, H, W, 1]``, even
+        at one stream. Each eye's events are padded/truncated to ``block``
+        rows (truncation keeps the newest and is counted in
+        ``stream_buffers[s][eye].dropped``). With ``pipeline=0`` the
+        returned depth is this window's. With ``pipeline=N >= 1`` up to N
+        windows stay in flight and the oldest finished depth is returned
+        once the pipeline is full (``None`` for the first N pushes;
+        :meth:`flush` drains the tail).
         """
-        frames = []
-        dropped = None
+        single = isinstance(window_events, dict)
+        streams = [window_events] if single else list(window_events)
+        if single and self.n_streams != 1:
+            raise ValueError(f"evaluator serves {self.n_streams} streams; push a list of "
+                             "per-stream event dicts")
+        if len(streams) != self.n_streams:
+            raise ValueError(f"got {len(streams)} streams, evaluator serves {self.n_streams}")
+        events, valids = {}, {}
         for e in self.eyes:
-            buf = self.buffers[e]
-            buf.push(window_events.get(e, np.zeros((0, 4), np.float32)))
-            raw = buf.pop()
-            if raw.shape[0] > self.block:
-                buf.dropped += raw.shape[0] - self.block
-            ev, n = self._upload(raw)
-            fr, dr = self._voxelize(ev, n, e)
-            frames.append(fr)
-            dropped = dr if dropped is None else dropped + dr
-        frame = torch.cat(frames, dim=-1)[None].to(self._dtype)  # [1, H, W, C]
-        state = self._init_state() if self.reset_each_window else self._state
-        depths, _, self._state = forward(self.params, frame, self.cfg, state,
-                                         fire_fn=self.fire_fn)
-        self._drop_acc = dropped if self._drop_acc is None else self._drop_acc + dropped
-        pending = _Pending(depths[0][0].float())
+            raws = []
+            for s, win in enumerate(streams):
+                buf = self.stream_buffers[s][e]
+                buf.push(win.get(e, np.zeros((0, 4), np.float32)))
+                raw = buf.pop()
+                if raw.shape[0] > self.block:
+                    buf.dropped += raw.shape[0] - self.block
+                raws.append(raw)
+            events[e], valids[e] = self._upload(raws)
+        state = self.init_state() if self.reset_each_window else self._state
+        depth, self._state, rejected = self.step(state, events, valids)
+        self._drop_acc = rejected if self._drop_acc is None else self._drop_acc + rejected
+        pending = _Pending(depth, stacked=not single)
         if not self.pipeline:
             return pending.result()
         self._pending.append(pending)
@@ -243,7 +350,8 @@ class StreamingEvaluator:
         return None
 
     def flush(self) -> Optional[np.ndarray]:
-        """Pipelined mode: the oldest in-flight depth, or ``None`` when drained."""
+        """Pipelined mode: the oldest in-flight depth (shaped as its push's
+        input asked), or ``None`` when drained."""
         if not self._pending:
             return None
         return self._pending.popleft().result()

@@ -29,8 +29,7 @@ The loops' contracts, as in the JAX package:
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises without a card. Not ported yet: the figures
-(``save_viz``), multi-device meshes (``mesh_shape``) and the serving
-sources other than ``--synthetic``.
+(``save_viz``, ``--save-video``) and multi-device meshes (``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -43,6 +42,7 @@ import signal
 import tempfile
 import threading
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -65,7 +65,6 @@ from stereospike_tpu_torch.models.stereospike import (
     init_params,
 )
 from stereospike_tpu_torch.objectives.losses import TotalLossConfig
-from stereospike_tpu_torch.sources import SyntheticSource
 from stereospike_tpu_torch.streaming import StreamingEvaluator, serving_device
 from stereospike_tpu_torch.train.ann_steps import (
     create_ann_train_state,
@@ -905,50 +904,155 @@ def _ann_eval_loop(cfg: TrainConfig, *, synthetic: bool = False, data=None,
 
 
 # ----------------------------------------------------------------- serving
-def stream_loop(cfg: TrainConfig, *, synthetic: bool = False, n_windows: int = 20,
-                pipeline: int = 1, events_per_window: int = 20000,
-                device: Device = "cuda", depths: Optional[List[np.ndarray]] = None) -> Dict:
+def stream_loop(cfg: TrainConfig, *, synthetic: bool = False, events_dir: Optional[str] = None,
+                n_windows: int = 20, pipeline: int = 1, events_per_window: int = 20000,
+                save_video: Optional[str] = None, aer_format: str = "TXYP",
+                listen: Optional[str] = None, source=None, reply: bool = False,
+                artifact: Optional[str] = None, aedat: Optional[str] = None,
+                realtime: bool = False, which: str = BEST, device: Device = "cuda",
+                depths: Optional[List[np.ndarray]] = None) -> Dict:
     """Streaming-serving driver: feed event windows through the
     :class:`~stereospike_tpu_torch.streaming.StreamingEvaluator`, carrying
     the membrane state across windows, and log per-window latencies.
 
-    Only the ``synthetic`` source is ported, with freshly initialised
-    parameters from ``cfg.seed``. Served depth maps are appended to
-    ``depths`` when a list is given. Returns the JAX package's result keys.
+    Weights (:func:`_load_params`): ``cfg.import_pth``, else ``which`` in
+    ``cfg.checkpoint_dir``, else a fresh init from ``cfg.seed``. Sources
+    (:mod:`stereospike_tpu_torch.sources`): ``synthetic`` random windows;
+    ``events_dir`` — a DENSE-format ``events/data/*.npy`` directory (one
+    file per window; monocular); ``listen`` — ``"host:port"`` (or just
+    ``"port"``) to accept a live SPKE-protocol TCP event feed (``n_windows
+    <= 0`` serves successive producers until a re-accept times out);
+    ``aedat`` — an AEDAT 3.1 recording path (or ``"left,right"`` paths for
+    a stereo rig); or an explicit ``source`` iterable of per-eye window
+    dicts. ``reply`` sends each depth map back to the ``listen`` producer.
+
+    ``artifact``: serve from an exported ``.ssx`` artifact (``cli
+    export-serving``) instead of live params: geometry (eyes, window,
+    block, streams) comes from its manifest and the step from its exported
+    program; ``cfg.model`` and checkpoints are ignored.
+
+    Served depth maps are appended to ``depths`` when a list is given.
+    Returns the JAX package's result keys. ``save_video`` is not ported
+    (it needs cv2, which the card's machine lacks) and raises.
     """
-    if not synthetic:
-        raise ValueError("this port serves --synthetic windows only")
-    device = serving_device(device)
-    model_cfg = build_model_config(cfg)
-    binocular = cfg.model != "stereospike_monocular"
-    eyes = ("left", "right") if binocular else ("left",)
-    params = init_params(torch.Generator().manual_seed(cfg.seed), model_cfg, device=device)
-    window_s = 0.05  # the MVSEC 20 Hz depth cadence
-    source = SyntheticSource(hw=tuple(cfg.in_hw), eyes=eyes, n_windows=n_windows,
-                             events_per_window=events_per_window, window_s=window_s,
-                             seed=cfg.seed)
-    evaluator = StreamingEvaluator(params, model_cfg, eyes=eyes, nfpdm=cfg.nfpdm,
-                                   window=window_s, reset_each_window=False,
-                                   pipeline=pipeline, compute_dtype=_compute_dtype(cfg),
-                                   device=device)
+    from stereospike_tpu_torch import sources as src
+
+    if save_video:
+        raise NotImplementedError("--save-video is not ported: it needs cv2 (ROADMAP A.9)")
+    evaluator = None
+    if artifact is not None:
+        evaluator = StreamingEvaluator.from_artifact(artifact, pipeline=pipeline,
+                                                     reset_each_window=False)
+        if evaluator.n_streams != 1:
+            raise ValueError(
+                f"this driver's sources emit single-camera windows; the artifact serves "
+                f"n_streams={evaluator.n_streams} — use StreamingEvaluator.from_artifact "
+                "directly and push() per-stream lists")
+        eyes = evaluator.eyes
+        binocular = len(eyes) > 1
+    else:
+        if is_ann_model(cfg.model):
+            raise ValueError("streaming serves the stateful SNN models")
+        device = serving_device(device)
+        model_cfg = build_model_config(cfg)
+        binocular = cfg.model != "stereospike_monocular"
+        params = _load_params(cfg, model_cfg, which, device)
+        eyes = ("left", "right") if binocular else ("left",)
+
+    # the MVSEC 20 Hz cadence; an artifact's baked grid wins
+    window_s = evaluator.window if evaluator is not None else 0.05
+    max_windows = None  # set by the --listen branch (unbounded elsewhere)
+    if source is not None:
+        window_s = float(getattr(source, "window_s", window_s))
+    elif listen is not None:
+        host, _, port = listen.rpartition(":")
+        # the source object itself is kept (reply() and late_dropped live on
+        # it): the window count is bounded in the serving loop below
+        source = src.SocketSource(host or "127.0.0.1", int(port), eyes=eyes,
+                                  window_s=window_s, reconnect=n_windows <= 0)
+        max_windows = n_windows if n_windows > 0 else None
+    elif aedat is not None:
+        paths = [p for p in aedat.split(",") if p]
+        if len(paths) != len(eyes):
+            raise ValueError(
+                f"model {cfg.model} consumes {len(eyes)} eye(s) ({'/'.join(eyes)}); "
+                f"--aedat got {len(paths)} path(s) — pass one AEDAT 3.1 file per eye, "
+                "comma-separated")
+        source = src.AedatFileSource(dict(zip(eyes, paths)), window_s=window_s,
+                                     n_windows=n_windows or None, realtime=realtime)
+    elif events_dir is not None:
+        if binocular:
+            raise ValueError("events_dir is a monocular (DENSE-format) source; use "
+                             "model=stereospike_monocular")
+        # the bin grid is window/nfpdm: ReplayDirSource sizes the window from
+        # the longest file's span, so no file's tail lands in the dump bin
+        source = src.ReplayDirSource(events_dir, aer_format=aer_format,
+                                     n_windows=n_windows)
+        window_s = source.window_s
+    else:
+        if not synthetic:
+            raise ValueError("need --synthetic, an events_dir, an --aedat recording, or a "
+                             "--listen source")
+        hw = (tuple(evaluator.artifact.meta["in_hw"]) if evaluator is not None
+              else tuple(cfg.in_hw))
+        source = src.SyntheticSource(hw=hw, eyes=eyes, n_windows=n_windows,
+                                     events_per_window=events_per_window, window_s=window_s,
+                                     seed=cfg.seed)
+
+    if evaluator is None:
+        evaluator = StreamingEvaluator(params, model_cfg, eyes=eyes, nfpdm=cfg.nfpdm,
+                                       window=window_s, reset_each_window=False,
+                                       pipeline=pipeline, compute_dtype=_compute_dtype(cfg),
+                                       device=device)
+    elif abs(window_s - evaluator.window) > 0.1 * evaluator.window:
+        # the artifact's bin grid (window/nfpdm) is baked into its step
+        warnings.warn(
+            f"source window {window_s * 1e3:.1f} ms differs from the artifact's baked "
+            f"{evaluator.window * 1e3:.1f} ms grid; events past the grid land in the dump "
+            "bin (binned_out_events)")
+
+    can_reply = reply and hasattr(source, "reply")
+    if reply and not can_reply:
+        raise ValueError("--reply needs a --listen (socket) source")
+    if can_reply and max_windows is None and pipeline:
+        # serve-forever spans producer reconnects: a pipelined depth of
+        # producer A would be replied over producer B's connection
+        warnings.warn("--reply with --n-windows 0 forces --pipeline 0 "
+                      "(pipelined replies would cross producer reconnects)")
+        pipeline = 0
+        evaluator.pipeline = 0
 
     def served(d: Optional[np.ndarray]) -> int:
         if d is None:
             return 0
         if depths is not None:
             depths.append(d)
+        if can_reply:
+            # per reply, not a latch: a producer that stops reading loses
+            # only its own replies
+            try:
+                source.reply(d)
+            except (OSError, RuntimeError):
+                pass
         return 1
 
     lat = []
     n_served = 0
     t_start = time.time()
-    for win in source:
+    # the iterator outlives the window bound: a socket source's connection
+    # stays open until the pipelined tail below has been replied
+    windows = iter(source)
+    for win in windows:
         t0 = time.time()
         d = evaluator.push(win)
         lat.append(time.time() - t0)
         n_served += served(d)
+        if max_windows is not None and len(lat) >= max_windows:
+            break
     while served(evaluator.flush()):
         n_served += 1
+    if hasattr(windows, "close"):
+        windows.close()
     lat_ms = np.asarray(lat[1:] or lat) * 1e3  # drop the first (warm-up) window
 
     results = {
@@ -957,11 +1061,14 @@ def stream_loop(cfg: TrainConfig, *, synthetic: bool = False, n_windows: int = 2
         "interval_ms_p99": (round(float(np.percentile(lat_ms, 99)), 3)
                             if len(lat_ms) else None),
         "pipeline": pipeline,
-        "dropped_events": int(sum(b.dropped for b in evaluator.buffers.values())),
-        # events the voxelizer rejected (out-of-window timestamps / view)
+        "dropped_events": int(sum(b.dropped for sb in evaluator.stream_buffers
+                                  for b in sb.values())),
+        # events the voxelizer rejected (out-of-window timestamps / view):
+        # nonzero usually means a mis-relativized event feed
         "binned_out_events": int(evaluator.binning_dropped),
-        "late_events": 0,    # a socket source's late arrivals; none here
-        "video": None,       # video output is not ported
+        # events that arrived after their window was emitted (socket, AEDAT)
+        "late_events": int(getattr(source, "late_dropped", 0)),
+        "video": None,
         "total_time_s": round(time.time() - t_start, 3),
     }
     logger = MetricsLogger(cfg.checkpoint_dir, name="stream", tensorboard=cfg.tensorboard)

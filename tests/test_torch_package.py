@@ -29,7 +29,7 @@ def _modules():
 # every module of the port so far; a new one is added here as it is ported
 PORTED = (
     "cli", "data.augmentation", "data.dense", "data.fixtures", "data.mvsec", "data.packing",
-    "data.synthetic", "data.voxelizer", "interop", "models.ann", "models.factory",
+    "data.synthetic", "data.voxelizer", "deploy", "interop", "models.ann", "models.factory",
     "models.multistep", "models.stereospike", "native", "nn.blocks", "nn.layers",
     "objectives.losses", "objectives.metrics", "snn.cuda_kernels", "snn.neurons",
     "snn.surrogate", "sources", "streaming", "train.ann_steps", "train.checkpoint",
@@ -124,3 +124,31 @@ def test_evaluator_needs_cuda_unless_told_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingEvaluator(params, cfg)
     StreamingEvaluator(params, cfg, device="cpu")
+
+
+def test_loading_an_artifact_imports_no_model_code(tmp_path):
+    """A served artifact needs ``torch`` and ``snn.cuda_kernels`` (the op's
+    registration): loading one and running its step imports no models, nn,
+    train or data module of the port."""
+    from stereospike_tpu_torch.deploy import export_serving_artifact
+
+    cfg = factory.stereospike(in_hw=(16, 24), base_channels=4)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    path = tmp_path / "tiny.ssx"
+    export_serving_artifact(StreamingEvaluator(params, cfg, block=64, device="cpu"), str(path))
+    code = ("import json, sys, torch\n"
+            "from stereospike_tpu_torch.deploy import load_serving_artifact\n"
+            f"art = load_serving_artifact({str(path)!r})\n"
+            "ev = {e: torch.zeros(1, 64, 4) for e in art.meta['eyes']}\n"
+            "ok = {e: torch.ones(1, 64, dtype=torch.bool) for e in art.meta['eyes']}\n"
+            "depth, state, rejected = art.step(art.init_state(), ev, ok)\n"
+            "print(json.dumps([list(depth.shape), float(rejected), sorted(sys.modules)]))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    shape, rejected, loaded = json.loads(out.strip().splitlines()[-1])
+    assert shape == [1, 16, 24, 1] and rejected == 0.0
+    ours = sorted(m for m in loaded if m.startswith("stereospike_tpu_torch."))
+    assert ours == ["stereospike_tpu_torch.deploy", "stereospike_tpu_torch.snn",
+                    "stereospike_tpu_torch.snn.cuda_kernels", "stereospike_tpu_torch.snn.neurons",
+                    "stereospike_tpu_torch.snn.surrogate"], ours
+    assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN]
