@@ -71,9 +71,10 @@ order; any failure ends the run with a non-zero exit and no result line:
               kept for the serving phase.
 12. serving — the rest of serving, with the driver's trained flagship
               (float32 unless stated, deterministic cuDNN): ``stream
-              --which best.pt`` and ``--import-pth`` of the same tensors,
-              20 windows each, equal depths; 8 cameras in one batched step
-              (float32 and bf16, 20 windows, pipeline 1), each stream
+              --which best.pt`` and ``--import-pth`` of its ``cli
+              export-pth`` file, 20 windows each, equal depths; 8 cameras
+              in one batched step (float32 and bf16, 20 windows, pipeline
+              1), each stream
               against a 1-stream evaluator within the stated tolerance,
               with a profile of the fire kernel per 8-stream window; ``cli
               stream --listen --reply --n-windows 10`` for the monocular and
@@ -85,7 +86,20 @@ order; any failure ends the run with a non-zero exit and no result line:
               4-stream artifact served, ``stream --artifact`` for 20
               windows; exactly 13 fire launches per window everywhere; one
               ``serving`` JSON line.
-13. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
+13. parallel — data parallelism: ``python -m torch.distributed.run
+              --nproc_per_node 1`` of this script as a worker, which runs
+              ``cli train --mesh-shape 1,1`` (NCCL, world 1, ``driver``'s
+              flagship bf16 B=16 T=1 run cut to a few steps): 13 forward
+              and 13 backward fire launches per step read by the profiler
+              over two steps of the running loop, the all-reduce present,
+              exact launch counts, and the bare step under the process group
+              timed against ``train``'s; two ranks sharing the card over
+              gloo (float32, layer-major T=5, B=4 each, 2 steps, cuDNN
+              deterministic) against one process at B=8 from the same
+              weights: loss and MDE, and the parameters, within the stated
+              tolerances, and both ranks' parameters bit-equal; ``cli
+              doctor`` ok and naming the card; one ``parallel`` JSON line.
+14. result  — the kernels' JSON line, the card's ``nvidia-smi`` line, and,
               last, ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -95,6 +109,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -134,6 +149,25 @@ SERVE_STREAMS, SOCKET_WINDOWS, AEDAT_WINDOWS = 8, 10, 6
 # on the threshold then flips a spike (measured on the H100: 0 at both)
 SERVE_STREAM_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 LM_BATCH, LM_STEPS, DENSE_BATCH = 4, 3, 4
+# data parallelism: the optimizer steps of the world-1 cli train; two gloo
+# ranks of B=4 at float32, layer-major T=5, 2 steps, against one process of B=8
+DP_STEPS = 4
+# the all-reduces of one T=1 step: every head's loss sums, the MDE's sums,
+# the flattened gradient buffer
+DP_ALLREDUCES_PER_STEP = 3
+GLOO_RANKS, GLOO_BATCH, GLOO_STEPS = 2, 4, 2
+# 2 ranks against 1 process (deterministic cuDNN): the weight gradients sum
+# over the batch in another order (each rank's half, then the all-reduce),
+# which may flip a spike whose charge sits at the threshold, and Adam's
+# first updates are about lr·sign(g), so a gradient within float32 noise of
+# 0 may move its weight the other way. Loss and MDE within GLOO_RTOL
+# relative; each tensor's change over the steps within GLOO_DELTA_RTOL of
+# the one process's change (L2 norms). Controls, read in every run: a run
+# whose optimizer never stepped reads 1.0 on the change, and the loss of
+# step 2 then equals that of step 1; a run that lost its last update reads
+# ‖p1 − p2‖ / ‖p2 − p0‖. Each control must fail its tolerance.
+GLOO_RTOL = 1e-4
+GLOO_DELTA_RTOL = 5e-2
 # the backward's Sigmoid tolerance: one ulp of each element in the I/O
 # type, or 4 float32 ulps of the array's largest magnitude, whichever is
 # larger (expf may round otherwise than PyTorch's sigmoid, and 1 - s
@@ -980,11 +1014,14 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def driver_profile(torch, ck, common, ckpt: Path) -> dict:
+def driver_profile(torch, ck, common, ckpt: Path, tag: str = "[driver-profile]",
+                   staging: bool = True) -> dict:
     """torch.profiler over two steps (4 and 5) inside a running training
     loop, the prefetcher live: the device's idle share over those steps'
-    wall time, the top kernels, and the device time of the wire unpack
-    and the augmentation (their ``record_function`` spans)."""
+    wall time, the top kernels, the fire kernels, the all-reduce calls
+    (``c10d::allreduce_`` and the backend's own op) and their kernels, and
+    the device time of the wire unpack and the augmentation (their
+    ``record_function`` spans); with ``staging``, :func:`staging_profile`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1010,8 +1047,9 @@ def driver_profile(torch, ck, common, ckpt: Path) -> dict:
                     on_step=hook)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        log("[driver-profile] torch.profiler reported no device time: not measured")
+        log(f"{tag} torch.profiler reported no device time: not measured")
         return {"idle_share": None}
+    host_ops = [e.name for e in prof.events() if e.device_type != DeviceType.CUDA]
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1024,12 +1062,16 @@ def driver_profile(torch, ck, common, ckpt: Path) -> dict:
            "idle_share": 1 - busy / window["wall_ms"],
            "fire_fwd": sum("fire_fwd_kernel" in e.name for e in dev),
            "fire_bwd": sum("fire_bwd_kernel" in e.name for e in dev),
+           "allreduce_calls": sum(n == "c10d::allreduce_" for n in host_ops),
+           "backend_allreduce_ops": sum(n in ("nccl:all_reduce", "gloo:all_reduce")
+                                        for n in host_ops),
+           "nccl_kernels": sum("nccl" in e.name.lower() for e in dev),
            # the worker thread's spans, where the profiler records them
            "worker_spans_ms": {k: v / 1e3 for k, v in spans.items()},
            "top": [[n[:80], ms] for n, ms in sorted(by_name.items(), key=lambda r: -r[1])[:10]]}
-    log(f"[driver-profile] two bf16 B={DRIVER_BATCH} steps in the running loop: "
-        f"{json.dumps(out)}")
-    out["staging"] = staging_profile(torch, cli.build_config(args))
+    log(f"{tag} two bf16 B={DRIVER_BATCH} steps in the running loop: {json.dumps(out)}")
+    if staging:
+        out["staging"] = staging_profile(torch, cli.build_config(args))
     return out
 
 
@@ -1089,6 +1131,19 @@ def staging_profile(torch, cfg) -> dict:
     return out
 
 
+def _driver_flags():
+    """``driver_phase``'s CLI flags: (data, the flagship at bf16 and B=16, its
+    training run: T=1, augmentation, packed uploads, prefetch 2)."""
+    hw = ",".join(map(str, FLAGSHIP_HW))
+    data = ["--synthetic", "--device", "cuda", "--in-hw", hw, "--seed", "0",
+            "--synth-frames", str(DRIVER_FRAMES), "--synth-learnable", "true"]
+    flagship = [*data, "--model", "stereospike", "--compute-dtype", "bfloat16",
+                "--batch-size", str(DRIVER_BATCH)]
+    train = [*flagship, "--n-timesteps", "1", "--augment", "true", "--pack-io", "true",
+             "--prefetch", "2"]
+    return data, flagship, train
+
+
 def driver_phase(torch, ck, bare_frames_per_s: float, keep: Path) -> dict:
     """The training driver on the card, through the CLI, on the learnable
     synthetic MVSEC fixture at 260×346 (written once, removed at the end).
@@ -1100,13 +1155,7 @@ def driver_phase(torch, ck, bare_frames_per_s: float, keep: Path) -> dict:
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_driver_"))
     try:
-        hw = ",".join(map(str, FLAGSHIP_HW))
-        data = ["--synthetic", "--device", "cuda", "--in-hw", hw, "--seed", "0",
-                "--synth-frames", str(DRIVER_FRAMES), "--synth-learnable", "true"]
-        flagship = [*data, "--model", "stereospike", "--compute-dtype", "bfloat16",
-                    "--batch-size", str(DRIVER_BATCH)]
-        train = [*flagship, "--n-timesteps", "1", "--augment", "true", "--pack-io", "true",
-                 "--prefetch", "2"]
+        data, flagship, train = _driver_flags()
         ckpt = work / "flagship"
         steps = 2 * (DRIVER_FRAMES - 2) // DRIVER_BATCH           # per epoch
         n_val = len(range(0, DRIVER_FRAMES - 2, 3))
@@ -1357,7 +1406,7 @@ def serving_phase(torch, ck, cfg, trained: Path) -> dict:
                   "--tensorboard", "false", "--checkpoint-dir", str(trained)]
         row = {}
 
-        # trained weights: --which best.pt, and --import-pth of the same tensors
+        # trained weights: --which best.pt, and --import-pth of their export-pth file
         def stream_depths(extra, tag):
             args = cli.build_parser().parse_args(["stream", "--synthetic", "--n-windows",
                                                   str(N_WINDOWS), *common, *extra])
@@ -1377,11 +1426,14 @@ def serving_phase(torch, ck, cfg, trained: Path) -> dict:
         base = cli.build_config(cli.build_parser().parse_args(["stream", *common]))
         model_cfg = loop.build_model_config(base)
         params = loop._load_params(base, model_cfg, "best.pt", "cuda")
+        # the checkpoint as a reference .pth, through cli export-pth
         pth = work / "trained.pth"
-        torch.save({k: v.detach().cpu() for k, v in params.items()}, pth)
+        row["export_pth"], _, _, _ = _cli_run(torch, ck, ["export-pth", *common, "--which",
+                                                          "best.pt", "--out", str(pth)],
+                                              "export-pth")
         which, d_which = stream_depths(["--which", "best.pt"], "--which best.pt")
         _, d_pth = stream_depths(["--import-pth", str(pth), "--which", "absent.pt"],
-                                 "--import-pth")
+                                 "--import-pth of the export-pth file")
         diff = max(float(np.abs(a - b).max()) for a, b in zip(d_which, d_pth))
         if diff != 0.0:
             raise SystemExit(f"[serving] --which best.pt and --import-pth differ by {diff}")
@@ -1522,7 +1574,279 @@ def serving_phase(torch, ck, cfg, trained: Path) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------- data parallel
+def _workers(argvs, envs, work: Path, tag: str, timeout_s: float = 900.0) -> None:
+    """Start one process per argv (its output to a file, not a pipe), wait
+    for all, stop any still running at the deadline or on a failure, and
+    fail unless each exits 0; the end of each one's output is logged."""
+    procs = []
+    try:
+        for i, (argv, env) in enumerate(zip(argvs, envs)):
+            out = open(work / f"{tag}_{i}.log", "w")
+            procs.append((subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out,
+                                           stderr=subprocess.STDOUT), out))
+        deadline = time.time() + timeout_s
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    for i, (p, out) in enumerate(procs):
+        text = Path(out.name).read_text()
+        tail = [ln for ln in text.splitlines() if "ptxas" not in ln][-12:]
+        log(f"[parallel] {tag} process {i} exit {p.returncode}; its last lines:\n  "
+            + "\n  ".join(tail))
+        if p.returncode != 0:
+            raise SystemExit(f"[parallel] {tag} process {i} exited {p.returncode}")
+
+
+def _gloo_setup(torch, cfg, batch_size: int, group=None):
+    """The two-rank comparison's state, global batch and step: the flagship
+    from seed 0, float32, layer-major at T=MS_T."""
+    from stereospike_tpu_torch.data.synthetic import synthetic_batch
+    from stereospike_tpu_torch.models.stereospike import init_params
+    from stereospike_tpu_torch.objectives.losses import TotalLossConfig
+    from stereospike_tpu_torch.train.state import create_train_state, make_optimizer
+    from stereospike_tpu_torch.train.steps import make_train_step
+
+    tx = make_optimizer(2e-4)
+    state = create_train_state(init_params(torch.Generator().manual_seed(0), cfg,
+                                           device="cuda"), tx, torch.Generator().manual_seed(1))
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(7), batch=batch_size,
+                            in_hw=cfg.in_hw, T=MS_T, device="cuda")
+    step = make_train_step(cfg, TotalLossConfig(), tx, compute_dtype=torch.float32,
+                           multistep=True, group=group)
+    return state, batch, step
+
+
+def _gloo_steps(torch, state, batch, step) -> dict:
+    """GLOO_STEPS steps: their losses and MDEs, and the parameters before
+    and after each step (``params[i]`` after i steps), on the host."""
+    params = [{k: p.detach().cpu().clone() for k, p in state.params.items()}]
+    metrics = []
+    for _ in range(GLOO_STEPS):
+        metrics.append(step(state, batch)[1])
+        params.append({k: p.detach().cpu().clone() for k, p in state.params.items()})
+    return {"loss": [float(m["loss"]) for m in metrics], "mde": [float(m["mde"]) for m in metrics],
+            "params": params}
+
+
+def _change_rel(got: dict, want: dict, start: dict) -> dict:
+    """Each tensor's ‖got − want‖ / ‖want − start‖ (float64 L2 norms): the
+    parameters' change over the steps against the reference change. A
+    tensor that the reference leaves as it was is left out if ``got``
+    equals it, and reads inf if not."""
+    out = {}
+    for k, w in want.items():
+        moved = float((w.double() - start[k].double()).norm())
+        off = float((got[k].double() - w.double()).norm())
+        if moved:
+            out[k] = off / moved
+        elif off:
+            out[k] = math.inf
+    return out
+
+
+def dp_worker(mode: str, work: Path) -> int:
+    """One rank of the parallel phase (``chip_smoke.py --dp-worker MODE DIR``):
+    ``world1`` under ``torch.distributed.run --nproc_per_node 1``, ``gloo``
+    as one of two ranks on the one card; the results go to ``DIR``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from stereospike_tpu_torch.models import factory
+    from stereospike_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from stereospike_tpu_torch.snn import cuda_kernels as ck
+
+    cfg = factory.stereospike(in_hw=FLAGSHIP_HW)
+    if mode == "gloo":
+        dist.init_process_group("gloo")  # NCCL refuses two ranks on one card
+        mesh = make_mesh(device="cuda")
+        torch.backends.cudnn.deterministic = True
+        state, batch, step = _gloo_setup(torch, cfg, GLOO_BATCH * mesh.world, mesh.group)
+        out = _gloo_steps(torch, state, batch, make_sharded_train_step(step, mesh))
+        out["params"] = [out["params"][0], out["params"][-1]]  # the start and the end
+        torch.save(out, work / f"gloo_{mesh.rank}.pt")
+        dist.destroy_process_group()
+        return 0
+
+    from stereospike_tpu_torch.data.synthetic import synthetic_batch
+    from stereospike_tpu_torch.models.stereospike import init_params
+    from stereospike_tpu_torch.objectives.losses import TotalLossConfig
+    from stereospike_tpu_torch.train.state import create_train_state, make_optimizer
+    from stereospike_tpu_torch.train.steps import make_train_step
+
+    _, _, train = _driver_flags()
+    flags = [*train, "--mesh-shape", "1,1", "--tensorboard", "false"]
+    row = {"world": int(os.environ["WORLD_SIZE"])}
+    # two steps profiled inside the running loop of cli train's train_loop
+    row["profile"] = driver_profile(torch, ck, flags, work / "profile",
+                                    "[parallel] world 1 NCCL:", staging=False)
+    # the bare step as train_phase times it, with the world-1 group and
+    # without, in this process: each timed twice, in the order without,
+    # with, with, without, each time after the same warm-up
+    mesh = make_mesh((1, 1), device="cuda")
+    tx = make_optimizer(2e-4)
+    state = create_train_state(init_params(torch.Generator().manual_seed(0), cfg,
+                                           device="cuda"), tx, torch.Generator().manual_seed(1))
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(2), batch=TRAIN_BATCH,
+                            in_hw=cfg.in_hw, T=1, device="cuda")
+    steps = {g: make_train_step(cfg, TotalLossConfig(), tx, compute_dtype=torch.bfloat16,
+                                group=mesh.group if g == "group" else None)
+             for g in ("no_group", "group")}
+    row["step"] = {"no_group": [], "group": []}
+    for g in ("no_group", "group", "group", "no_group"):
+        row["step"][g].append(_timed_steps(torch, steps[g], state, batch, TRAIN_WARMUP,
+                                           TRAIN_STEPS, ck))
+    del state, batch, steps
+    torch.cuda.empty_cache()
+    # cli train itself, counted; it ends the process group
+    res, fwd, bwd, wall = _cli_run(torch, ck, [
+        "train", *flags, "--epochs", "1", "--max-steps", str(DP_STEPS), "--checkpoint-dir",
+        str(work / "cli")], "torchrun world 1: cli train --mesh-shape 1,1")
+    row["cli"] = {"result": res, "launches": [fwd, bwd], "wall_s": wall}
+    (work / "world1.json").write_text(json.dumps(row))
+    return 0
+
+
+def parallel_phase(torch, ck, cfg, bare_step_ms: float) -> dict:
+    """Data parallelism on the card: ``cli train --mesh-shape 1,1`` under
+    ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world 1);
+    two gloo ranks sharing the card against one process on their global
+    batch; ``cli doctor``."""
+    import shutil
+    import socket
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    row = {}
+    try:
+        # 1. world 1 over NCCL, through the launcher a user runs
+        torch.cuda.empty_cache()
+        _workers([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), "--dp-worker",
+                   "world1", str(work)]], [dict(os.environ)], work, "torchrun world 1")
+        w1 = json.loads((work / "world1.json").read_text())
+        prof, step, cli_run = w1["profile"], w1["step"], w1["cli"]
+        if prof.get("idle_share") is None:
+            raise SystemExit("[parallel] torch.profiler recorded no device time in the world-1 "
+                             "run: its fire launches and all-reduces went unchecked")
+        _expect("world-1 profiled fire launches over 2 steps",
+                (prof["fire_fwd"], prof["fire_bwd"]), (26, 26), "parallel")
+        _expect("world-1 profiled all-reduce calls over 2 steps",
+                (prof["allreduce_calls"], prof["backend_allreduce_ops"]),
+                (2 * DP_ALLREDUCES_PER_STEP, 2 * DP_ALLREDUCES_PER_STEP), "parallel")
+        for g, runs in step.items():
+            for r in runs:
+                _expect(f"world-1 timed step launches ({g})",
+                        (r["fire_fwd_launches"], r["fire_bwd_launches"]),
+                        (13 * TRAIN_STEPS, 13 * TRAIN_STEPS), "parallel")
+        n_val = len(range(0, DRIVER_FRAMES - 2, 3))
+        _expect("world-1 cli train launches", cli_run["launches"],
+                [13 * (DP_STEPS + -(-n_val // DRIVER_BATCH)), 13 * DP_STEPS], "parallel")
+        _finite("world-1 cli train", cli_run["result"], ("train_loss", "val_MDE"))
+        with_group = statistics.fmean(r["step_ms"] for r in step["group"])
+        without = statistics.fmean(r["step_ms"] for r in step["no_group"])
+        row["world1_nccl"] = {
+            "launches_per_step_profiled": [prof["fire_fwd"] / 2, prof["fire_bwd"] / 2],
+            "allreduce_calls_per_step": prof["allreduce_calls"] / 2,
+            "nccl_ops_per_step": prof["backend_allreduce_ops"] / 2,
+            "nccl_kernels_per_step": prof["nccl_kernels"] / 2,
+            "profile_idle_share": prof["idle_share"],
+            "profile_wall_ms_per_step": prof["wall_ms"] / 2,
+            # host clock over 5 steps after 2 of warm-up, in the order
+            # without, with, with, without, all in the torchrun worker
+            "step_ms_group": [r["step_ms"] for r in step["group"]],
+            "step_ms_no_group": [r["step_ms"] for r in step["no_group"]],
+            "step_ms_events_group": [r["step_ms_events"] for r in step["group"]],
+            "step_ms_events_no_group": [r["step_ms_events"] for r in step["no_group"]],
+            "group_ratio": with_group / without,
+            # train_phase's step, timed in this process with no group
+            "train_phase_step_ms": bare_step_ms,
+            "cli_launches": cli_run["launches"], "cli_wall_s": cli_run["wall_s"],
+            "cli_train_frames_per_s": cli_run["result"].get("train_frames_per_s")}
+        log(f"[parallel] world 1 NCCL: {json.dumps(row['world1_nccl'])}")
+
+        # 2. two gloo ranks on the one card against one process at twice the batch
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        envs = [dict(os.environ, RANK=str(r), WORLD_SIZE=str(GLOO_RANKS), LOCAL_RANK="0",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                for r in range(GLOO_RANKS)]
+        t0 = time.perf_counter()
+        _workers([[sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", "gloo",
+                   str(work)]] * GLOO_RANKS, envs, work, "gloo")
+        gloo_s = time.perf_counter() - t0
+        ranks = [torch.load(work / f"gloo_{r}.pt", weights_only=True)
+                 for r in range(GLOO_RANKS)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            one = _gloo_steps(torch, *_gloo_setup(torch, cfg, GLOO_BATCH * GLOO_RANKS))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        p0, p1, p2 = one["params"][0], one["params"][1], one["params"][-1]
+        same_start = all(torch.equal(r["params"][0][k], p0[k]) for r in ranks for k in p0)
+        bit_equal = all(torch.equal(ranks[0]["params"][1][k], r["params"][1][k])
+                        for r in ranks[1:] for k in p0)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["loss"], one["loss"]))
+        mde_rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["mde"], one["mde"]))
+        change = _change_rel(ranks[0]["params"][1], p2, p0)
+        worst = max(change, key=change.get)
+        # the controls: no update at all (the change reads 1.0 and step 2's
+        # loss is step 1's), and the last update lost (the parameters after
+        # step 1 in place of those after step 2)
+        loss_control = abs(one["loss"][1] - one["loss"][0]) / abs(one["loss"][0])
+        lost = _change_rel(p1, p2, p0)
+        g = {"ranks": GLOO_RANKS, "batch_per_rank": GLOO_BATCH, "T": MS_T, "steps": GLOO_STEPS,
+             "loss_2_ranks": ranks[0]["loss"], "loss_1_process": one["loss"],
+             "mde_2_ranks": ranks[0]["mde"], "mde_1_process": one["mde"],
+             "loss_max_rel": loss_rel, "mde_max_rel": mde_rel,
+             "change_max_rel": change[worst], "change_worst": worst,
+             "change_median_rel": statistics.median(change.values()),
+             "tensors_moved": len(change),
+             "control_no_update_loss_rel": loss_control,
+             "control_lost_update_change_min_rel": min(lost.values()),
+             "control_lost_update_change_max_rel": max(lost.values()),
+             "param_elements_differing": sum(int((ranks[0]["params"][1][k] != p).sum())
+                                             for k, p in p2.items()),
+             "param_elements": sum(p.numel() for p in p2.values()),
+             "ranks_same_start": same_start, "ranks_bit_equal": bit_equal,
+             "workers_wall_s": gloo_s}
+        row["gloo_2_ranks"] = g
+        log(f"[parallel] 2 gloo ranks vs 1 process: {json.dumps(g)} (tolerance: loss and MDE "
+            f"{GLOO_RTOL} relative, each tensor's change {GLOO_DELTA_RTOL} of the one "
+            "process's; the ranks bit-equal)")
+        if not (same_start and bit_equal):
+            raise SystemExit("[parallel] the two gloo ranks did not start from the one "
+                             "process's weights or ended apart")
+        if max(loss_rel, mde_rel) > GLOO_RTOL or change[worst] > GLOO_DELTA_RTOL:
+            raise SystemExit("[parallel] 2 gloo ranks differ from 1 process beyond tolerance")
+        if loss_control <= GLOO_RTOL or min(lost.values()) <= GLOO_DELTA_RTOL:
+            raise SystemExit("[parallel] a control passes the tolerance: the check cannot "
+                             "tell a run that skipped an update")
+
+        # 3. the doctor
+        doctor, _, _, _ = _cli_run(torch, ck, ["doctor"], "doctor")
+        if not (doctor["ok"] and torch.cuda.get_device_name(0) in doctor["devices"]
+                and doctor["fire_kernels"]["ok"] and doctor["nvcc"]["ok"]):
+            raise SystemExit(f"[parallel] doctor: {doctor}")
+        row["doctor"] = {k: doctor[k] for k in ("ok", "devices", "device_roundtrip", "nvcc",
+                                                "host_cpu_count")}
+        print(json.dumps({"parallel": row}), flush=True)
+        return row
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2], Path(sys.argv[3]))
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -1562,6 +1886,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     srv = serving_phase(torch, ck, cfg, trained)
     s8 = srv[f"s{SERVE_STREAMS}_float32"]
+    torch.cuda.empty_cache()
+    par = parallel_phase(torch, ck, cfg, tr["b16"]["step_ms"])
+    w1 = par["world1_nccl"]
     # the fire kernels' bound on the layer-major bf16 step: every site's
     # [T, M] read and written once; forward x, v0 in and spikes, v_T out,
     # (2T+2)·M values; backward x, v0, gs in and gx, gv0 out, (3T+2)·M
@@ -1610,6 +1937,10 @@ def main() -> int:
         "serving_s8_launches": s8["launches"],
         "serving_s8_path_ms": s8.get("fire_path_ms"),
         "serving_s8_bound_ms": s8.get("fire_bound_ms"),
+        # data parallelism, world 1 over NCCL under torch.distributed.run:
+        # launches per step in the profiled running loop, and cli train's
+        "data_parallel_launches_per_step": w1["launches_per_step_profiled"][0],
+        "data_parallel_cli_launches": w1["cli_launches"][0],
         "sites": sites,
     }, {
         "name": "fire_bwd",
@@ -1637,6 +1968,8 @@ def main() -> int:
         "layer_major_path_ms": ms["profile"].get("fire_bwd_ms"),
         "layer_major_bound_ms": lm_bwd_bound,
         "layer_major_moved_bytes_ms": lm_bwd_moved,
+        "data_parallel_launches_per_step": w1["launches_per_step_profiled"][1],
+        "data_parallel_cli_launches": w1["cli_launches"][1],
         "sites": bwd["sites"],
     }]}
     print(json.dumps(kernels), flush=True)

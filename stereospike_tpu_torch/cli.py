@@ -7,16 +7,26 @@
     stream          streaming serving: event windows in (synthetic, a TCP
                     feed, an AEDAT 3.1 recording, a DENSE directory), depth
                     maps out, from a checkpoint, a ``.pth`` or an artifact
+    export-pth      a checkpoint as a reference torch ``.pth`` state dict
     export-serving  the serving step as a self-contained ``.ssx`` artifact
+    doctor          environment diagnostics: the card, nvcc, the kernels'
+                    build, the native host ops (one JSON object; exit 2
+                    when the card does not answer)
 
 Every ``TrainConfig`` field is a flag (``--batch-size 16``, ``--in-hw
 260,346``, ``--augment false``), as in the JAX CLI; also ``--config
 file.json`` (flags override it), ``--save-config path`` (write the resolved
 config and exit), ``--synthetic`` (a generated on-disk fixture: no MVSEC
 download, no h5py), ``--max-steps``, ``--which`` (the checkpoint ``eval``,
-``firing-rates``, ``stream`` and ``export-serving`` read, ``best.pt`` by
+``firing-rates``, ``stream`` and the exports read, ``best.pt`` by
 default) and ``--device`` (``cuda`` unless given). Each command prints its
 loop's result as one JSON line.
+
+Data-parallel training on N cards, one process each (``--mesh-shape N,1``;
+``batch_size`` is per process)::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m stereospike_tpu_torch.cli train --mesh-shape N,1 ...
 """
 
 from __future__ import annotations
@@ -36,7 +46,9 @@ COMMANDS = {
     "eval": "evaluate a checkpoint on the test set",
     "firing-rates": "profile per-layer spike densities",
     "stream": "streaming serving: events in, depth maps out",
+    "export-pth": "export a checkpoint as a reference torch .pth",
     "export-serving": "export the serving step as a self-contained .ssx artifact",
+    "doctor": "probe the environment: the card, nvcc, the kernels' build, native ops",
 }
 
 
@@ -90,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="write the resolved config to this path and exit")
         p.add_argument("--device", type=str, default="cuda",
                        help="torch device to run on (default cuda)")
-        if name != "train":
+        if name not in ("train", "doctor"):
             p.add_argument("--which", type=str, default="best.pt",
                            help="checkpoint file in --checkpoint-dir to read")
         if name == "stream":
@@ -121,6 +133,11 @@ def build_parser() -> argparse.ArgumentParser:
                                 "instead of live params")
             p.add_argument("--save-video", type=str, default=None,
                            help="not ported: needs cv2 (ROADMAP A.9)")
+        if name == "export-pth":
+            p.add_argument("--out", type=str, required=True, help="output .pth path")
+        if name == "doctor":
+            p.add_argument("--device-timeout", type=float, default=240.0,
+                           help="seconds before declaring the card unreachable")
         if name == "export-serving":
             p.add_argument("--out", type=str, required=True, help="output .ssx artifact path")
             p.add_argument("--block", type=int, default=1 << 16,
@@ -153,7 +170,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             f.write(cfg.to_json())
         print(json.dumps({"wrote": args.save_config}))
         return 0
+    if args.command == "doctor":
+        from stereospike_tpu_torch.doctor import run_doctor
 
+        report = run_doctor(device_timeout_s=args.device_timeout, data_root=cfg.data_root)
+        print(json.dumps(report))
+        return 0 if report["ok"] else 2
+    try:
+        out = _run(cfg, args)
+    finally:
+        # a data-parallel launch's process group (train/eval with a mesh)
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def _run(cfg: TrainConfig, args: argparse.Namespace) -> dict:
     from stereospike_tpu_torch.train import loop
 
     if args.command == "train":
@@ -173,10 +208,55 @@ def main(argv: Optional[List[str]] = None) -> int:
                                listen=args.listen, reply=args.reply, artifact=args.artifact,
                                aedat=args.aedat, realtime=args.realtime, which=args.which,
                                device=args.device)
+    elif args.command == "export-pth":
+        out = _export_pth(cfg, args)
     else:
         out = _export_serving(cfg, args)
-    print(json.dumps(out))
-    return 0
+    return out
+
+
+def _require_exportable_weights(cfg: TrainConfig, which: str) -> None:
+    """``_load_params`` falls back to a fresh init; an export of random
+    weights that looks valid is not wanted: a mistyped --checkpoint-dir
+    fails here."""
+    from stereospike_tpu_torch.train.checkpoint import has_checkpoint
+
+    if not (cfg.import_pth or has_checkpoint(cfg.checkpoint_dir, which)):
+        raise FileNotFoundError(f"no checkpoint {which!r} in {cfg.checkpoint_dir!r} and "
+                                "no --import-pth; refusing to export fresh random-init weights")
+
+
+def _export_pth(cfg: TrainConfig, args: argparse.Namespace) -> dict:
+    """A checkpoint (``--which``) as a reference ``state_dict`` file, so that
+    a model trained here loads into the reference code (``interop.py``)."""
+    import torch
+
+    from stereospike_tpu_torch.train.loop import (
+        _load_params,
+        build_ann_config,
+        build_model_config,
+        is_ann_model,
+    )
+
+    if is_ann_model(cfg.model):
+        from stereospike_tpu_torch.interop import ann_params_to_torch_state_dict
+        from stereospike_tpu_torch.models.ann import init_ann_params, init_ann_state
+        from stereospike_tpu_torch.train.checkpoint import restore_fields
+
+        ann_cfg = build_ann_config(cfg)
+        template = {"params": init_ann_params(torch.Generator().manual_seed(cfg.seed), ann_cfg,
+                                              device=args.device),
+                    "bn_state": init_ann_state(ann_cfg, device=args.device)}
+        restored = restore_fields(cfg.checkpoint_dir, template, args.which)
+        sd = ann_params_to_torch_state_dict(restored["params"], restored["bn_state"])
+    else:
+        from stereospike_tpu_torch.interop import params_to_torch_state_dict
+
+        _require_exportable_weights(cfg, args.which)
+        sd = params_to_torch_state_dict(
+            _load_params(cfg, build_model_config(cfg), args.which, args.device))
+    torch.save(sd, args.out)
+    return {"exported": args.out, "n_tensors": len(sd)}
 
 
 def _export_serving(cfg: TrainConfig, args: argparse.Namespace) -> dict:
@@ -184,7 +264,6 @@ def _export_serving(cfg: TrainConfig, args: argparse.Namespace) -> dict:
     a ``.ssx`` artifact for ``--device`` (``deploy.py``)."""
     from stereospike_tpu_torch.deploy import export_serving_artifact
     from stereospike_tpu_torch.streaming import StreamingEvaluator
-    from stereospike_tpu_torch.train.checkpoint import has_checkpoint
     from stereospike_tpu_torch.train.loop import (
         _compute_dtype,
         _load_params,
@@ -194,12 +273,8 @@ def _export_serving(cfg: TrainConfig, args: argparse.Namespace) -> dict:
 
     if is_ann_model(cfg.model):
         raise ValueError("serving artifacts wrap the stateful SNN models; ANN checkpoints "
-                         "are not served")
-    # _load_params falls back to a fresh init; an artifact of random weights
-    # that looks valid is not: a mistyped --checkpoint-dir fails here
-    if not (cfg.import_pth or has_checkpoint(cfg.checkpoint_dir, args.which)):
-        raise FileNotFoundError(f"no checkpoint {args.which!r} in {cfg.checkpoint_dir!r} and "
-                                "no --import-pth; refusing to export fresh random-init weights")
+                         "export via export-pth")
+    _require_exportable_weights(cfg, args.which)
     model_cfg = build_model_config(cfg)
     params = _load_params(cfg, model_cfg, args.which, args.device)
     eyes = ("left",) if cfg.model == "stereospike_monocular" else ("left", "right")

@@ -13,6 +13,11 @@ The equivalent ANN's bridge (:func:`ann_params_from_jax`,
 (conv ``{'w', 'b'}``, BN ``{'gamma', 'beta'}`` and ``{'mean', 'var'}``) to
 the port's two flat dicts under the ``.pth`` keys.
 
+Reference ``.pth`` files: :func:`load_torch_checkpoint` and
+:func:`load_torch_ann_checkpoint` read them; :func:`params_to_torch_state_dict`
+and :func:`ann_params_to_torch_state_dict` write the port's weights in
+their layout, as the JAX exports of the same names do (``cli export-pth``).
+
 State: the JAX package keeps NHWC membranes, with the level-0 sites
 ``bottom`` and ``deconv1`` in space-to-depth layout ``[B, H/2, W/2, 4C]``
 when ``cfg.use_s2d_level0``; the port keeps NCHW everywhere.
@@ -29,6 +34,7 @@ from stereospike_tpu_torch.models.ann import ANN_BN_SITES, ANN_CONV_SITES
 from stereospike_tpu_torch.models.stereospike import (
     SITE_KEYS,
     SITE_LEVEL,
+    SPIKING_SITES,
     StereoSpikeConfig,
     _site_shapes,
 )
@@ -191,6 +197,63 @@ def _checked(sd: Mapping[str, torch.Tensor], expected: Mapping[str, torch.Tensor
             raise ValueError(f"{what} '{k}' is {tuple(t.shape)}, the config expects "
                              f"{tuple(ref.shape)}")
         out[k] = t.to(device=device, dtype=ref.dtype)
+    return out
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A float32 CPU copy, the reference ``.pth`` files' type."""
+    return t.detach().to("cpu", torch.float32).clone()
+
+
+def params_to_torch_state_dict(params: Mapping[str, torch.Tensor],
+                               fill_missing_heads: bool = True) -> Dict[str, torch.Tensor]:
+    """The port's parameters as the reference's ``state_dict``: float32 CPU
+    tensors, OIHW weights, the 0-dim PLIF ``w`` that SpikingJelly's
+    ``ParametricLIFNode`` keeps (a [1] one fails its ``load_state_dict``),
+    in the JAX export's key order (the conv sites, then the PLIF nodes).
+
+    ``fill_missing_heads``: the reference's cut-predict class still defines
+    the prediction heads it does not call, so a strict ``load_state_dict``
+    wants their keys; a head the parameters lack gets zeros (and scale 1
+    when the model has learnable scales)."""
+    any_scale = any(k.endswith(".scale_value") for k in params)
+    out: Dict[str, torch.Tensor] = {}
+    for site, (stem, scale_key, _) in SITE_KEYS.items():
+        if f"{stem}.weight" not in params:
+            if fill_missing_heads and site.startswith("pred"):
+                c_in = params[f"deconv{site[-1]}.0.up.1.weight"].shape[0]
+                out[f"{stem}.weight"] = torch.zeros(1, c_in, 3, 3)
+                out[f"{stem}.bias"] = torch.zeros(1)
+                if any_scale:
+                    out[scale_key] = torch.ones(1)
+            continue
+        for key in (f"{stem}.weight", f"{stem}.bias", scale_key):
+            if key in params:
+                out[key] = _f32(params[key])
+    for site in SPIKING_SITES:
+        plif_key = SITE_KEYS[site][2]
+        if plif_key in params:
+            out[plif_key] = _f32(params[plif_key]).reshape(())
+    return out
+
+
+def ann_params_to_torch_state_dict(params: Mapping[str, torch.Tensor],
+                                   bn_state: Mapping[str, torch.Tensor]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The equivalent ANN's ``(params, bn_state)`` as the reference's
+    ``state_dict``: float32 CPU tensors, the conv sites then the BN sites,
+    each BN with ``num_batches_tracked`` 0 as the JAX export writes it."""
+    out: Dict[str, torch.Tensor] = {}
+    for _, stem in ANN_CONV_SITES:
+        for key in (f"{stem}.weight", f"{stem}.bias"):
+            if key in params:
+                out[key] = _f32(params[key])
+    for _, stem in ANN_BN_SITES:
+        for key in ("weight", "bias"):
+            out[f"{stem}.{key}"] = _f32(params[f"{stem}.{key}"])
+        for key in ("running_mean", "running_var"):
+            out[f"{stem}.{key}"] = _f32(bn_state[f"{stem}.{key}"])
+        out[f"{stem}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out
 
 

@@ -154,20 +154,21 @@ _RUNNING = ("running_mean", "running_var")
 
 
 def ann_forward(params: Params, frame: torch.Tensor, cfg: AnnConfig, state: Params, *,
-                train: bool = False, init_depth: Optional[torch.Tensor] = None
+                train: bool = False, init_depth: Optional[torch.Tensor] = None, group=None
                 ) -> Tuple[List[torch.Tensor], Params]:
     """``frame`` [B, H, W, C] → ``([depth1, ..., depth4], new_bn_state)``,
     each depth [B, H, W, 1] and cumulative through the shared integrator
     pool, which starts at ``init_depth`` [B, H, W, 1] (zero by default).
     ``train``: normalize by batch statistics and move the running ones;
-    otherwise normalize by the running statistics, which stay."""
+    otherwise normalize by the running statistics, which stay. ``group``:
+    in training, BatchNorm over the global batch of that process group."""
     act = _ACTIVATIONS[cfg.activation]
     sizes = cfg.skeleton.sizes
     new_state: Params = {}
 
     def act_bn(stem: str, x: torch.Tensor) -> torch.Tensor:
         y, s = batchnorm_apply(_bn(params, stem, _AFFINE), act(x),
-                               state=_bn(state, stem, _RUNNING), train=train)
+                               state=_bn(state, stem, _RUNNING), train=train, group=group)
         new_state.update({f"{stem}.{n}": v for n, v in s.items()})
         return y
 
@@ -184,7 +185,7 @@ def ann_forward(params: Params, frame: torch.Tensor, cfg: AnnConfig, state: Para
                                  "b": params[f"{stem}.conv{j}.0.bias"]}
             block[f"bn{j}"] = _bn(params, f"{stem}.conv{j}.2", _AFFINE)
         bn_state = {f"bn{j}": _bn(state, f"{stem}.conv{j}.2", _RUNNING) for j in (1, 2)}
-        y, s = ann_res_block_apply(block, x, act, bn_state=bn_state, train=train)
+        y, s = ann_res_block_apply(block, x, act, bn_state=bn_state, train=train, group=group)
         for j in (1, 2):
             new_state.update({f"{stem}.conv{j}.2.{n}": v for n, v in s[f"bn{j}"].items()})
         return y

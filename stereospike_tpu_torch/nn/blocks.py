@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from stereospike_tpu_torch.nn.layers import conv2d, conv_init, upsample_conv
+from stereospike_tpu_torch.parallel.collectives import psum, world_size
 
 Params = Mapping[str, torch.Tensor]
 
@@ -91,18 +92,48 @@ def init_bn_state(channels: int, *, device: Device = "cuda",
 
 
 def batchnorm_apply(params: Params, x: torch.Tensor, *, state: Params, train: bool,
-                    momentum: float = 0.1, eps: float = 1e-5
+                    momentum: float = 0.1, eps: float = 1e-5, group=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """BatchNorm2d over NCHW ``x``, torch semantics: in training the biased
     batch variance normalizes and the running variance takes the unbiased
     one, each running statistic moving by ``momentum``; in eval the running
     statistics normalize. Returns ``(y, new_state)``; ``state`` itself is
-    left as it was."""
+    left as it was.
+
+    Training under a process ``group`` (data parallelism) normalizes by
+    the global batch's statistics, as the JAX package's GSPMD lowering
+    does: the mean from a sum over ranks, the variance from a centred sum
+    of squares over ranks, both differentiable; the running statistics
+    then equal the single-device ones."""
     new_state = ({k: v.detach().clone() for k, v in state.items()} if train
                  else dict(state))
-    y = F.batch_norm(x, new_state["running_mean"], new_state["running_var"],
-                     params["weight"], params["bias"], training=train,
-                     momentum=momentum, eps=eps)
+    if not train or group is None:
+        y = F.batch_norm(x, new_state["running_mean"], new_state["running_var"],
+                         params["weight"], params["bias"], training=train,
+                         momentum=momentum, eps=eps)
+        return y, new_state
+    return _global_batchnorm(params, x, new_state, momentum, eps, group)
+
+
+def _global_batchnorm(params: Params, x: torch.Tensor, new_state: Dict[str, torch.Tensor],
+                      momentum: float, eps: float, group
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training BatchNorm with the batch statistics of every rank's batch;
+    ``new_state`` (a copy) moves in place."""
+    dims = (0, 2, 3)
+    n = torch.tensor(float(x.numel() // x.shape[1] * world_size(group)), dtype=x.dtype,
+                     device=x.device)
+    # each rank's activations feed the statistics and are normalized by
+    # them, so the cotangents of the sums are summed over ranks too
+    mean = psum(x.sum(dims), group, sum_cotangents=True) / n
+    centred = x - mean.view(1, -1, 1, 1)
+    var = psum((centred * centred).sum(dims), group, sum_cotangents=True) / n
+    y = (centred * torch.rsqrt(var + eps).view(1, -1, 1, 1) * params["weight"].view(1, -1, 1, 1)
+         + params["bias"].view(1, -1, 1, 1))
+    with torch.no_grad():
+        unbiased = var * n / torch.clamp(n - 1, min=1.0)
+        new_state["running_mean"].mul_(1 - momentum).add_(momentum * mean)
+        new_state["running_var"].mul_(1 - momentum).add_(momentum * unbiased)
     return y, new_state
 
 
@@ -120,15 +151,18 @@ def init_ann_res_block(generator: torch.Generator, channels: int, *, bias: bool 
 
 
 def ann_res_block_apply(params: Mapping[str, Params], x: torch.Tensor, act: Activation, *,
-                        bn_state: Mapping[str, Params], train: bool, connect_fn: str = "ADD"
+                        bn_state: Mapping[str, Params], train: bool, connect_fn: str = "ADD",
+                        group=None
                         ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
     """ANN residual block: [conv3 → act → BN] ×2, then connect with the
-    identity. Returns ``(y, {"bn1": ..., "bn2": ...})``, the new BN state."""
+    identity. Returns ``(y, {"bn1": ..., "bn2": ...})``, the new BN state.
+    ``group``: BN over the global batch (:func:`batchnorm_apply`)."""
     out = x
     new_state = {}
     for i in (1, 2):
         conv = params[f"conv{i}"]
         out = conv2d(out, conv["w"], conv.get("b"), stride=1, padding=1)
         out, new_state[f"bn{i}"] = batchnorm_apply(params[f"bn{i}"], act(out),
-                                                   state=bn_state[f"bn{i}"], train=train)
+                                                   state=bn_state[f"bn{i}"], train=train,
+                                                   group=group)
     return connect(out, x, connect_fn), new_state

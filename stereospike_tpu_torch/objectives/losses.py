@@ -15,6 +15,14 @@ zeroed at invalid pixels:
 - spike penalization: Σ_tensors Σ s² / (2·numel)
 - total: SI + α·GM (+ β·SP), defaults α = 0.5, scale weights (1, 1, 1, 1),
   β = 1
+
+``group``: under data parallelism (``parallel/mesh.py``) the sums run
+over the ranks of that process group: every head's n, Σ res, Σ res² and
+GM sum in one all-reduce, the spike tensors' Σ s² in another, and each
+spike tensor's element count is its local one times the world size (every
+rank's batch has the same shape). The loss then equals the single-device
+loss of the global batch; n and the quadratic term are not linear in the
+batch, so per-rank losses averaged afterwards would not.
 """
 
 from __future__ import annotations
@@ -26,23 +34,37 @@ import torch
 import torch.nn.functional as F
 
 from stereospike_tpu_torch.nn.layers import bilinear_resize
+from stereospike_tpu_torch.parallel.collectives import psum, world_size
+
+Group = Optional["torch.distributed.ProcessGroup"]
 
 
-def _masked_residual(predicted: torch.Tensor, groundtruth: torch.Tensor,
-                     mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _head_sums(predicted: torch.Tensor, groundtruth: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """One head's local sums, stacked: n, Σ res², Σ res and the
+    gradient-matching sum Σ (|∂x res| + |∂y res|)·mask."""
     maskf = mask.to(predicted.dtype)
-    n = torch.clamp(maskf.sum(), min=1.0)
     res = (predicted - groundtruth) * maskf
-    return res, maskf, n
+    gx, gy = _sobel(res)
+    return torch.stack([maskf.sum(), (res * res).sum(), res.sum(),
+                        ((_abs(gx) + _abs(gy)) * maskf).sum()])
+
+
+def _si(sums: torch.Tensor) -> torch.Tensor:
+    """The scale-invariant MSE from a head's (global) sums."""
+    n = torch.clamp(sums[0], min=1.0)
+    return sums[1] / n - torch.square(sums[2]) / (n * n)
+
+
+def _gm(sums: torch.Tensor) -> torch.Tensor:
+    """The gradient-matching L1 from a head's (global) sums."""
+    return sums[3] / torch.clamp(sums[0], min=1.0)
 
 
 def scale_invariant_loss(predicted: torch.Tensor, groundtruth: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+                         mask: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Masked scale-invariant MSE."""
-    res, _, n = _masked_residual(predicted, groundtruth, mask)
-    mse = (res * res).sum() / n
-    quad = torch.square(res.sum()) / (n * n)
-    return mse - quad
+    return _si(psum(_head_sums(predicted, groundtruth, mask), group))
 
 
 def _sobel(res: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,11 +92,9 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def gradient_matching_loss(predicted: torch.Tensor, groundtruth: torch.Tensor,
-                           mask: torch.Tensor) -> torch.Tensor:
+                           mask: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Masked Sobel gradient-matching L1."""
-    res, maskf, n = _masked_residual(predicted, groundtruth, mask)
-    gx, gy = _sobel(res)
-    return ((_abs(gx) + _abs(gy)) * maskf).sum() / n
+    return _gm(psum(_head_sums(predicted, groundtruth, mask), group))
 
 
 def resize_groundtruth(groundtruth: torch.Tensor, mask: torch.Tensor,
@@ -90,36 +110,49 @@ def resize_groundtruth(groundtruth: torch.Tensor, mask: torch.Tensor,
     return vals, cover >= 1.0 - 1e-6
 
 
-def _multiscale(loss_fn, predicted: Sequence[torch.Tensor], groundtruth: torch.Tensor,
-                mask: torch.Tensor, factors: Optional[Sequence[float]]) -> torch.Tensor:
-    factors = (1.0,) * len(predicted) if factors is None else factors
+def _pyramid_sums(predicted: Sequence[torch.Tensor], groundtruth: torch.Tensor,
+                  mask: torch.Tensor, group: Group) -> torch.Tensor:
+    """[heads, 4]: every head's sums against the GT at its resolution,
+    summed over the ranks of ``group`` by one all-reduce."""
+    return psum(torch.stack([
+        _head_sums(p, *resize_groundtruth(groundtruth, mask, tuple(p.shape[1:3])))
+        for p in predicted]), group)
+
+
+def _multiscale(term, sums: torch.Tensor,
+                factors: Optional[Sequence[float]]) -> torch.Tensor:
+    factors = (1.0,) * len(sums) if factors is None else factors
     total = 0.0
-    for f, p in zip(factors, predicted):
-        gt_s, m_s = resize_groundtruth(groundtruth, mask, tuple(p.shape[1:3]))
-        total = total + f * loss_fn(p, gt_s, m_s)
+    for f, s in zip(factors, sums):
+        total = total + f * term(s)
     return total
 
 
 def multiscale_scale_invariant_loss(predicted: Sequence[torch.Tensor],
                                     groundtruth: torch.Tensor, mask: torch.Tensor,
-                                    factors: Optional[Sequence[float]] = None) -> torch.Tensor:
+                                    factors: Optional[Sequence[float]] = None,
+                                    group: Group = None) -> torch.Tensor:
     """Σ_scales factor · SI(pred_s, resize(gt))."""
-    return _multiscale(scale_invariant_loss, predicted, groundtruth, mask, factors)
+    return _multiscale(_si, _pyramid_sums(predicted, groundtruth, mask, group), factors)
 
 
 def multiscale_gradient_matching_loss(predicted: Sequence[torch.Tensor],
                                       groundtruth: torch.Tensor, mask: torch.Tensor,
-                                      factors: Optional[Sequence[float]] = None
-                                      ) -> torch.Tensor:
+                                      factors: Optional[Sequence[float]] = None,
+                                      group: Group = None) -> torch.Tensor:
     """Σ_scales factor · GM(pred_s, resize(gt))."""
-    return _multiscale(gradient_matching_loss, predicted, groundtruth, mask, factors)
+    return _multiscale(_gm, _pyramid_sums(predicted, groundtruth, mask, group), factors)
 
 
-def spike_penalization_loss(spike_tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def spike_penalization_loss(spike_tensors: Sequence[torch.Tensor],
+                            group: Group = None) -> torch.Tensor:
     """Σ_tensors mean(s²)/2: the activity regulariser."""
     total = 0.0
-    for s in spike_tensors:
-        total = total + (s * s).sum() / (2.0 * float(s.numel()))
+    if not spike_tensors:
+        return total
+    squares = psum(torch.stack([(s * s).sum() for s in spike_tensors]), group)
+    for s, sq in zip(spike_tensors, squares):
+        total = total + sq / (2.0 * float(s.numel() * world_size(group)))
     return total
 
 
@@ -135,11 +168,12 @@ class TotalLossConfig:
 
 def total_loss(predicted: Sequence[torch.Tensor], groundtruth: torch.Tensor,
                mask: torch.Tensor, spike_tensors: Optional[Sequence[torch.Tensor]] = None,
-               cfg: TotalLossConfig = TotalLossConfig()) -> torch.Tensor:
-    """SI + α·GM (+ β·SP) over the prediction pyramid."""
+               cfg: TotalLossConfig = TotalLossConfig(), group: Group = None) -> torch.Tensor:
+    """SI + α·GM (+ β·SP) over the prediction pyramid; over the ranks of
+    ``group`` when given."""
     w = cfg.scale_weights[: len(predicted)]
-    out = multiscale_scale_invariant_loss(predicted, groundtruth, mask, w)
-    out = out + cfg.alpha * multiscale_gradient_matching_loss(predicted, groundtruth, mask, w)
+    sums = _pyramid_sums(predicted, groundtruth, mask, group)
+    out = _multiscale(_si, sums, w) + cfg.alpha * _multiscale(_gm, sums, w)
     if cfg.penalize_spikes:
-        out = out + cfg.beta * spike_penalization_loss(spike_tensors or ())
+        out = out + cfg.beta * spike_penalization_loss(spike_tensors or (), group)
     return out

@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from stereospike_tpu_torch.parallel.collectives import psum
+
 DISPARITY_MULTIPLIER = 7.0
 FOCAL_LENGTH_X_BASELINE = {"indoor_flying": 19.941772}
 
@@ -67,9 +69,11 @@ def convert_to_lin(x: torch.Tensor, learn_on: str) -> torch.Tensor:
 
 
 def mean_depth_error(predicted: torch.Tensor, groundtruth: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
-    """Mean absolute depth residual over valid pixels."""
+                     mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean absolute depth residual over valid pixels; with a process
+    ``group``, over the valid pixels of every rank (the global MDE; one
+    all-reduce of the count and the sum)."""
     maskf = mask.to(predicted.dtype)
-    n = maskf.sum()
-    total = ((predicted - groundtruth) * maskf).abs().sum()
+    n, total = psum(torch.stack([maskf.sum(), ((predicted - groundtruth) * maskf).abs().sum()]),
+                    group)
     return total / torch.clamp(n, min=1.0)

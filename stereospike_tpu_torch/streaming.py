@@ -158,7 +158,8 @@ class ServingStep(torch.nn.Module):
 class _Pending:
     """A window's depth [S, H, W, 1] on its way to the host."""
 
-    def __init__(self, depth: torch.Tensor, stacked: bool):
+    def __init__(self, depth: torch.Tensor, stacked: bool, rejected: torch.Tensor):
+        self.rejected = rejected  # the window's voxelizer-rejected count, on the device
         if depth.is_cuda:
             self.host = torch.empty(depth.shape, dtype=depth.dtype, pin_memory=True)
             self.host.copy_(depth, non_blocking=True)
@@ -279,6 +280,8 @@ class StreamingEvaluator:
         return init_state(self.cfg, self.n_streams, self.compute_dtype, device=self.device)
 
     def reset(self) -> None:
+        """Zero the membranes and drop the windows in flight, their depths
+        and their rejected counts with them."""
         self._state = self.init_state()
         self._pending.clear()
 
@@ -340,18 +343,25 @@ class StreamingEvaluator:
             events[e], valids[e] = self._upload(raws)
         state = self.init_state() if self.reset_each_window else self._state
         depth, self._state, rejected = self.step(state, events, valids)
-        self._drop_acc = rejected if self._drop_acc is None else self._drop_acc + rejected
-        pending = _Pending(depth, stacked=not single)
+        pending = _Pending(depth, not single, rejected)
         if not self.pipeline:
-            return pending.result()
+            return self._fetch(pending)
         self._pending.append(pending)
         if len(self._pending) > self.pipeline:
-            return self._pending.popleft().result()
+            return self._fetch(self._pending.popleft())
         return None
+
+    def _fetch(self, pending: _Pending) -> np.ndarray:
+        """A window's depth on the host; its rejected events count from
+        here on, as in the JAX evaluator: a window still in flight, or
+        dropped by :meth:`reset`, has not been counted."""
+        self._drop_acc = (pending.rejected if self._drop_acc is None
+                          else self._drop_acc + pending.rejected)
+        return pending.result()
 
     def flush(self) -> Optional[np.ndarray]:
         """Pipelined mode: the oldest in-flight depth (shaped as its push's
         input asked), or ``None`` when drained."""
         if not self._pending:
             return None
-        return self._pending.popleft().result()
+        return self._fetch(self._pending.popleft())

@@ -50,10 +50,11 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in tensors.items()}
 
 
-def state_dict(state, generators: Optional[Dict[str, Optional[torch.Tensor]]] = None) -> Dict:
+def state_dict(state, generators: Optional[Dict[str, object]] = None) -> Dict:
     """The checkpoint's dict of a train state. ``generators`` overrides the
     generators' current states (a loop that has drawn ahead of its last
-    trained batch saves the states it needs on resume)."""
+    trained batch saves the states it needs on resume); a data-parallel
+    loop gives each generator's states as a list, one per rank."""
     out = {"params": _cpu(state.params),
            "optimizer": state.optimizer.state_dict(),
            "step": int(state.step), "epoch": int(state.epoch),
@@ -71,7 +72,7 @@ def state_dict(state, generators: Optional[Dict[str, Optional[torch.Tensor]]] = 
 
 def save_checkpoint(ckpt_dir: str, state, *, best: bool = False, tag: Optional[str] = None,
                     meta_extra: Optional[dict] = None,
-                    generators: Optional[Dict[str, Optional[torch.Tensor]]] = None) -> str:
+                    generators: Optional[Dict[str, object]] = None) -> str:
     """Write ``latest`` (always), plus ``best`` and the ``tag`` snapshot.
 
     ``meta_extra`` merges more run facts into ``checkpoint_meta.json``
@@ -125,9 +126,10 @@ def _copy_into(target: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor],
             t.copy_(saved[k])
 
 
-def restore_checkpoint(ckpt_dir: str, target, which: str = LATEST):
+def restore_checkpoint(ckpt_dir: str, target, which: str = LATEST, rank: int = 0):
     """Restore a checkpoint into ``target`` (a train state of the same
-    structure) in place, and return it."""
+    structure) in place, and return it. Generators saved one per rank give
+    ``rank`` its own; a rank beyond those saved keeps its fresh ones."""
     sd = _load(ckpt_dir, which)
     _copy_into(target.params, sd["params"], "params")
     target.optimizer.load_state_dict(sd["optimizer"])
@@ -136,9 +138,11 @@ def restore_checkpoint(ckpt_dir: str, target, which: str = LATEST):
     target.step, target.epoch = int(sd["step"]), int(sd["epoch"])
     target.best_metric = float(sd["best_metric"])
     for name in _GENERATORS:
-        g = getattr(target, name, None)
-        if g is not None and sd.get(name) is not None:
-            g.set_state(sd[name])
+        g, saved = getattr(target, name, None), sd.get(name)
+        if isinstance(saved, list):
+            saved = saved[rank] if rank < len(saved) else None
+        if g is not None and saved is not None:
+            g.set_state(saved)
     return target
 
 

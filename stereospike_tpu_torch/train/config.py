@@ -2,9 +2,9 @@
 
 Every field of the JAX package's ``TrainConfig``, with the same names and
 defaults, so that a CLI flag or a saved JSON config means the same in both
-packages. Two fields name parts not ported yet and are refused by the
-loops with a message: ``save_viz > 0`` (the figures, ``viz.py``) and a
-``mesh_shape`` (multi-device training).
+packages. Parts not ported yet are refused by the loops with a message:
+``save_viz > 0`` (the figures, ``viz.py``) and a ``mesh_shape`` with a
+spatial axis above 1 (the H split).
 """
 
 from __future__ import annotations
@@ -102,7 +102,8 @@ class TrainConfig:
     checkpoint_dir: str = "./results/checkpoints"
     checkpoint_every: int = 0         # extra periodic full-state checkpoint (0 = off)
     resume: bool = False
-    mesh_shape: Optional[Tuple[int, int]] = None  # (data, spatial); not ported yet
+    # (data, 1): one process per device (parallel/mesh.py); spatial > 1 is not ported yet
+    mesh_shape: Optional[Tuple[int, int]] = None
     debug_nans: bool = False
 
     def to_json(self) -> str:

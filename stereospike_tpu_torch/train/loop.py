@@ -27,9 +27,21 @@ The loops' contracts, as in the JAX package:
   skips exactly that many batches, their augmentation draws included, so a
   resumed run trains on the same batches as an uninterrupted one.
 
+Data parallelism (``parallel/mesh.py``), under ``python -m
+torch.distributed.run`` or with ``mesh_shape=(d, 1)``: one process per
+device, ``batch_size`` per process, each rank training on its own stride
+of the shuffled order (MVSEC only) with its own augmentation draws; the
+loss, the ANN's BatchNorm statistics and the summed gradients are global,
+so the replicas stay equal; validation and test batches are split over
+the ranks when they divide, and every rank gets the global statistics;
+rank 0 alone writes checkpoints and logs; a SIGTERM on any rank stops
+every rank at the same step (a MAX all-reduce of the flag every 16
+steps).
+
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises without a card. Not ported yet: the figures
-(``save_viz``, ``--save-video``) and multi-device meshes (``mesh_shape``).
+(``save_viz``, ``--save-video``) and spatial sharding
+(``mesh_shape=(d, s>1)``).
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stereospike_tpu_torch.data.augmentation import (
     AugmentConfig,
@@ -65,6 +78,12 @@ from stereospike_tpu_torch.models.stereospike import (
     init_params,
 )
 from stereospike_tpu_torch.objectives.losses import TotalLossConfig
+from stereospike_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    make_sharded_ann_eval_step,
+    make_sharded_eval_step,
+)
 from stereospike_tpu_torch.streaming import StreamingEvaluator, serving_device
 from stereospike_tpu_torch.train.ann_steps import (
     create_ann_train_state,
@@ -170,9 +189,41 @@ def _check_ported(cfg: TrainConfig) -> None:
     if cfg.save_viz:
         raise NotImplementedError("save_viz needs the figures (viz.py), not ported yet; "
                                   "pass --save-viz 0")
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("mesh_shape needs multi-device training, not ported "
-                                  "yet; this port runs on one device")
+
+
+def _device_setup(cfg: TrainConfig, device: torch.device) -> Optional[Mesh]:
+    """The launch's data-parallel mesh (``parallel/mesh.py::make_mesh``), or
+    None for one process without ``mesh_shape``, which runs with no
+    process group (the JAX ``_device_setup`` returns None for one device)."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if cfg.mesh_shape is None and world == 1:
+        return None
+    return make_mesh(cfg.mesh_shape, device=device)
+
+
+def _rank_seed(seed: int, mesh: Optional[Mesh]) -> int:
+    """The seed of this rank's augmentation generators: ``seed`` on rank 0,
+    so that a world of one draws as a single process does, and a stream of
+    its own on every other rank (ranks train on different samples; equal
+    draws would correlate the global batch), as the JAX loop folds the
+    process index into its key."""
+    if mesh is None or mesh.rank == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, mesh.rank)).generate_state(1)[0])
+
+
+def _eval_steps(eval_step: Callable, mesh: Optional[Mesh], make_sharded: Callable):
+    """``batch size → step``: under a mesh a batch that divides over the
+    ranks is split over them (``make_sharded(eval_step, mesh)``); any other
+    (a short last batch) runs whole on every rank, as the JAX loops fall
+    back to the single-device step."""
+    sharded = None if mesh is None else make_sharded(eval_step, mesh)
+
+    def pick(bsz: int) -> Callable:
+        return sharded if sharded is not None and bsz % mesh.world == 0 else eval_step
+
+    return pick
 
 
 # ------------------------------------------------------------------ data
@@ -276,10 +327,17 @@ def _fetch_sums(stats: Sequence[Tuple[torch.Tensor, ...]], width: int = 2) -> np
             .sum(0).cpu().numpy())
 
 
-def _batch_iter(cfg: TrainConfig, view, **kw):
+def _batch_iter(cfg: TrainConfig, view, mesh: Optional[Mesh] = None, **kw):
     """Host batches of a view: MVSEC's eye-stacked batcher or DENSE's
     monocular one. ``kw``: shuffle, seed and drop_last; the layout
-    arguments come from ``cfg``."""
+    arguments come from ``cfg``. ``mesh`` (training batches of a
+    data-parallel run): this rank's disjoint stride of the seed-determined
+    order, equal step counts on every rank; MVSEC only, as in the JAX
+    package."""
+    if mesh is not None and mesh.world > 1:
+        if cfg.dataset == "dense":
+            raise NotImplementedError("data-parallel sharding is MVSEC-only for now")
+        kw["shard"] = (mesh.rank, mesh.world)
     if cfg.dataset == "dense":
         from stereospike_tpu_torch.data.dense import dense_batches
 
@@ -502,6 +560,45 @@ def _generator_states(state) -> Dict[str, Optional[torch.Tensor]]:
                             ("device_generator", state.device_generator))}
 
 
+def _checkpoint_generators(gens: Dict[str, Optional[torch.Tensor]],
+                           mesh: Optional[Mesh]) -> Dict[str, object]:
+    """The generator states a checkpoint keeps: this process's, or, in a
+    data-parallel run, every rank's (a list per generator, gathered to all
+    ranks; rank 0 writes them), so that each rank resumes its own draws."""
+    if mesh is None or mesh.world == 1:
+        return gens
+    every: List[Optional[Dict]] = [None] * mesh.world
+    dist.all_gather_object(every, gens, group=mesh.group)
+    return {name: [g[name] for g in every] for name in gens}
+
+
+PREEMPT_EVERY = 16
+
+
+def _warm_preempt_collective(mesh: Optional[Mesh]) -> None:
+    """Run :func:`_preempt_sync`'s collective once before training starts,
+    signal-free and in lockstep, so that its first connection cannot race
+    a SIGTERM (the JAX loop saw a gloo connect time out so)."""
+    if mesh is not None and mesh.world > 1:
+        dist.all_reduce(torch.zeros(1, device=mesh.device), op=dist.ReduceOp.MAX,
+                        group=mesh.group)
+
+
+def _preempt_sync(guard: "_PreemptionGuard", step_idx: int, mesh: Optional[Mesh]) -> bool:
+    """Whether to stop for a SIGTERM. One process: its own flag, every step.
+    Data-parallel: a rank leaving the step loop alone would leave the
+    others waiting in the gradient all-reduce, so every ``PREEMPT_EVERY``
+    steps (the same steps on every rank) the flags are MAX-reduced over
+    ranks, and all stop at that step."""
+    if mesh is None or mesh.world == 1:
+        return guard.requested
+    if step_idx % PREEMPT_EVERY:
+        return False
+    flag = torch.full((1,), float(guard.requested), device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.group)
+    return bool(flag.item() > 0)
+
+
 def _skip_batches(batch_it, n: int, augment: bool, state, device: torch.device) -> None:
     """A resumed epoch: pass over the ``n`` batches the interrupted run had
     trained on, burning their augmentation draws, before the worker starts."""
@@ -534,16 +631,18 @@ def _f32(x: float) -> float:
 def _epochs(cfg: TrainConfig, state, train_view, step_fn, prep, logger: MetricsLogger,
             val_fn, sched_steps: int, resume_skip: int, max_steps: Optional[int],
             device: torch.device, on_step: Optional[Callable[[int], None]],
-            extra_scalars: Callable[..., Dict]) -> Dict:
+            extra_scalars: Callable[..., Dict], mesh: Optional[Mesh]) -> Dict:
     """The epoch loop the SNN and ANN trainers share: train, validate,
     checkpoint, with preemption and ``max_steps``. ``val_fn(epoch)`` →
     (loss sum, MDE sum, samples, seconds, extra scalars);
     ``extra_scalars(steps_done, n_steps, train_time, val_time)`` → more
-    scalars for the epoch's record."""
+    scalars for the epoch's record. ``mesh``: a data-parallel run's
+    rank-sharded batches and lockstep preemption."""
     done = False
     summary: Dict = {}
     steps_done = state.step
     start_epoch = state.epoch
+    _warm_preempt_collective(mesh)
     guard = _PreemptionGuard()
     try:
         for epoch in range(start_epoch, cfg.epochs):
@@ -552,7 +651,8 @@ def _epochs(cfg: TrainConfig, state, train_view, step_fn, prep, logger: MetricsL
             step_metrics = []
             preempt_now = False
             base_off = resume_skip if epoch == start_epoch else 0
-            batch_it = iter(_batch_iter(cfg, train_view, shuffle=True, seed=cfg.seed + epoch))
+            batch_it = iter(_batch_iter(cfg, train_view, mesh, shuffle=True,
+                                        seed=cfg.seed + epoch))
             _skip_batches(batch_it, base_off, cfg.augment, state, device)
             with _Prefetcher(batch_it, prep, depth=cfg.prefetch) as staged:
                 for item in staged:
@@ -564,14 +664,15 @@ def _epochs(cfg: TrainConfig, state, train_view, step_fn, prep, logger: MetricsL
                     if max_steps is not None and steps_done >= max_steps:
                         done = True
                         break
-                    if guard.requested:
+                    if _preempt_sync(guard, steps_done, mesh):
                         preempt_now = True
                         break
             if preempt_now:
                 # the exact resume point: the batch cursor within this epoch,
                 # and the generators as they stood at its start (the worker
                 # has drawn ahead of the last trained batch); no validation
-                save_checkpoint(cfg.checkpoint_dir, state, generators=at_start,
+                save_checkpoint(cfg.checkpoint_dir, state,
+                                generators=_checkpoint_generators(at_start, mesh),
                                 meta_extra={"steps_per_epoch": sched_steps,
                                             "epoch_step_offset": base_off + len(step_metrics)})
                 logger.text(f"SIGTERM: checkpointed at step {steps_done}; "
@@ -603,7 +704,8 @@ def _epochs(cfg: TrainConfig, state, train_view, step_fn, prep, logger: MetricsL
             tag = (f"epoch_{epoch:04d}"
                    if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0 else None)
             save_checkpoint(cfg.checkpoint_dir, state, best=is_best, tag=tag,
-                            meta_extra={"steps_per_epoch": sched_steps})
+                            meta_extra={"steps_per_epoch": sched_steps},
+                            generators=_checkpoint_generators(_generator_states(state), mesh))
             summary = {"epoch": epoch, **scalars, "best_val_MDE": state.best_metric}
             if done:
                 break
@@ -630,6 +732,10 @@ def train_loop(cfg: TrainConfig, *, synthetic: bool = False, max_steps: Optional
                                device=device, on_step=on_step)
     device = _run_device(device)
     _check_ported(cfg)
+    mesh = _device_setup(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    group, rank, world = (None, 0, 1) if mesh is None else (mesh.group, mesh.rank, mesh.world)
     if cfg.debug_nans:
         enable_nan_debugging(True)
 
@@ -640,7 +746,9 @@ def train_loop(cfg: TrainConfig, *, synthetic: bool = False, max_steps: Optional
     if data is None:
         data, timings = _make_data(cfg, synthetic, device=device)
     train_view, val_view, _ = data
-    steps_per_epoch = max(len(train_view) // cfg.batch_size, 1)
+    # the global batch is batch_size × world: the LR milestones are epochs
+    # of global steps
+    steps_per_epoch = max(len(train_view) // (cfg.batch_size * world), 1)
     sched_steps, resume_skip = _resume_meta(cfg, steps_per_epoch)
     sched = multistep_lr_schedule(cfg.learning_rate, cfg.lr_milestones, cfg.lr_gamma,
                                   sched_steps)
@@ -654,10 +762,12 @@ def train_loop(cfg: TrainConfig, *, synthetic: bool = False, max_steps: Optional
         params = load_torch_checkpoint(cfg.import_pth, model_cfg, device=device)
     else:
         params = init_params(torch.Generator().manual_seed(cfg.seed), model_cfg, device=device)
-    state = create_train_state(params, tx, torch.Generator().manual_seed(cfg.seed + 1234))
-    state.device_generator = torch.Generator(device=device).manual_seed(cfg.seed + 1235)
+    state = create_train_state(params, tx,
+                               torch.Generator().manual_seed(_rank_seed(cfg.seed + 1234, mesh)))
+    state.device_generator = torch.Generator(device=device).manual_seed(
+        _rank_seed(cfg.seed + 1235, mesh))
     if cfg.resume and has_checkpoint(cfg.checkpoint_dir):
-        restore_checkpoint(cfg.checkpoint_dir, state)
+        restore_checkpoint(cfg.checkpoint_dir, state, rank=rank)
 
     dtype = _compute_dtype(cfg)
     # the batch entries the step reads; the rest is dropped after augmentation
@@ -669,16 +779,18 @@ def train_loop(cfg: TrainConfig, *, synthetic: bool = False, max_steps: Optional
     train_step = make_train_step(model_cfg, loss_cfg, tx, learn_on=cfg.learn_on,
                                  compute_dtype=dtype, multistep=cfg.multistep,
                                  use_warmup=cfg.use_warmup, use_init_pots=cfg.use_init_pots,
-                                 accum_steps=cfg.accum_steps)
+                                 accum_steps=cfg.accum_steps, group=group)
     eval_step = make_eval_step(model_cfg, loss_cfg, learn_on=cfg.learn_on, compute_dtype=dtype,
                                multistep=cfg.multistep)
+    pick_eval = _eval_steps(eval_step, mesh, make_sharded_eval_step)
     stager = _Stager(device)
     # training uploads only are wire-packed: eval metrics stay float-exact
     prep = _train_prep(stager, cfg, AugmentConfig(eyes=2 if binocular else 1), keep, state)
 
     logger = MetricsLogger(cfg.checkpoint_dir, tensorboard=cfg.tensorboard)
     logger.text(f"model={cfg.model} params={count_params(params):,} device={device} "
-                f"steps/epoch={steps_per_epoch} batch={cfg.batch_size} T={cfg.n_timesteps} "
+                f"ranks={world} steps/epoch={steps_per_epoch} batch={cfg.batch_size} "
+                f"T={cfg.n_timesteps} "
                 f"multistep={cfg.multistep} lr={cfg.learning_rate} dtype={cfg.compute_dtype} "
                 f"augment={cfg.augment} fixture_write_s={timings['fixture_write_s']} "
                 f"data_build_s={timings['data_build_s']}")
@@ -689,7 +801,7 @@ def train_loop(cfg: TrainConfig, *, synthetic: bool = False, max_steps: Optional
         stats, rates = [], None
         for batch in _batch_iter(cfg, val_view, drop_last=False):
             bsz = batch["gt"].shape[0]
-            out = eval_step(state.params, stager.eval_batch(batch))
+            out = pick_eval(bsz)(state.params, stager.eval_batch(batch))
             # per-sample means weighted by the batch's sample count: the
             # reference's per-sample statistics with a short last batch
             stats.append((out["loss"] * bsz, out["mde"] * bsz))
@@ -712,7 +824,7 @@ def train_loop(cfg: TrainConfig, *, synthetic: bool = False, max_steps: Optional
                                             / max(train_time, 1e-9), 2)}
 
     summary = _epochs(cfg, state, train_view, train_step, prep, logger, val_fn, sched_steps,
-                      resume_skip, max_steps, device, on_step, extra)
+                      resume_skip, max_steps, device, on_step, extra, mesh)
     summary = dict(summary, **timings, steps_per_epoch=steps_per_epoch)
     if return_state:
         summary["state"] = state
@@ -755,17 +867,21 @@ def eval_loop(cfg: TrainConfig, *, synthetic: bool = False, data=None, which: st
         return _ann_eval_loop(cfg, synthetic=synthetic, data=data, which=which, device=device)
     device = _run_device(device)
     _check_ported(cfg)
+    mesh = _device_setup(cfg, device)  # offline eval keeps the launch's mesh contract
+    if mesh is not None:
+        device = mesh.device
     model_cfg = build_model_config(cfg)
     test_view = _test_view(cfg, synthetic, data, device)
     params = _load_params(cfg, model_cfg, which, device)
     eval_step = make_eval_step(model_cfg, _loss_config(cfg), learn_on=cfg.learn_on,
                                compute_dtype=_compute_dtype(cfg), multistep=cfg.multistep)
+    pick_eval = _eval_steps(eval_step, mesh, make_sharded_eval_step)
     stager = _Stager(device)
     stats = []
     n_samples = n = 0
     for batch in _batch_iter(cfg, test_view, drop_last=False):
         bsz = batch["gt"].shape[0]
-        out = eval_step(params, stager.eval_batch(batch))
+        out = pick_eval(bsz)(params, stager.eval_batch(batch))
         stats.append((out["loss"] * bsz, out["mde"] * bsz))
         n_samples += bsz
         n += 1
@@ -784,6 +900,9 @@ def firing_rates_loop(cfg: TrainConfig, *, synthetic: bool = False, data=None,
                          "have no spikes (use an SNN model)")
     device = _run_device(device)
     _check_ported(cfg)
+    mesh = _device_setup(cfg, device)  # every rank profiles the whole set; rank 0 logs
+    if mesh is not None:
+        device = mesh.device
     model_cfg = build_model_config(cfg)
     test_view = _test_view(cfg, synthetic, data, device)
     params = _load_params(cfg, model_cfg, which, device)
@@ -817,6 +936,10 @@ def _ann_train_loop(cfg: TrainConfig, *, synthetic: bool = False,
     running statistics in the state."""
     device = _run_device(device)
     _check_ported(cfg)
+    mesh = _device_setup(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    group, rank, world = (None, 0, 1) if mesh is None else (mesh.group, mesh.rank, mesh.world)
     if cfg.debug_nans:
         enable_nan_debugging(True)
     ann_cfg = build_ann_config(cfg)
@@ -825,7 +948,7 @@ def _ann_train_loop(cfg: TrainConfig, *, synthetic: bool = False,
     if data is None:
         data, timings = _make_data(cfg, synthetic, device=device)
     train_view, val_view, _ = data
-    steps_per_epoch = max(len(train_view) // cfg.batch_size, 1)
+    steps_per_epoch = max(len(train_view) // (cfg.batch_size * world), 1)
     sched_steps, resume_skip = _resume_meta(cfg, steps_per_epoch)
     sched = multistep_lr_schedule(cfg.learning_rate, cfg.lr_milestones, cfg.lr_gamma,
                                   sched_steps)
@@ -840,34 +963,36 @@ def _ann_train_loop(cfg: TrainConfig, *, synthetic: bool = False,
                                  device=device)
         bn_state = init_ann_state(ann_cfg, device=device)
     state = create_ann_train_state(params, bn_state, tx)
-    state.generator = torch.Generator().manual_seed(cfg.seed + 777)
-    state.device_generator = torch.Generator(device=device).manual_seed(cfg.seed + 778)
+    state.generator = torch.Generator().manual_seed(_rank_seed(cfg.seed + 777, mesh))
+    state.device_generator = torch.Generator(device=device).manual_seed(
+        _rank_seed(cfg.seed + 778, mesh))
     if cfg.resume and has_checkpoint(cfg.checkpoint_dir):
-        restore_checkpoint(cfg.checkpoint_dir, state)
+        restore_checkpoint(cfg.checkpoint_dir, state, rank=rank)
 
-    train_step = make_ann_train_step(ann_cfg, loss_cfg, tx, learn_on=cfg.learn_on)
+    train_step = make_ann_train_step(ann_cfg, loss_cfg, tx, learn_on=cfg.learn_on, group=group)
     eval_step = make_ann_eval_step(ann_cfg, loss_cfg, learn_on=cfg.learn_on)
+    pick_eval = _eval_steps(eval_step, mesh, make_sharded_ann_eval_step)
     stager = _Stager(device)
     prep = _train_prep(stager, cfg, AugmentConfig(), EVAL_KEYS, state)
 
     logger = MetricsLogger(cfg.checkpoint_dir, tensorboard=cfg.tensorboard)
     logger.text(f"model={cfg.model} (ANN {ann_cfg.activation}) "
-                f"params={count_params(params):,} steps/epoch={steps_per_epoch} "
-                f"batch={cfg.batch_size}")
+                f"params={count_params(params):,} ranks={world} "
+                f"steps/epoch={steps_per_epoch} batch={cfg.batch_size}")
 
     def val_fn(epoch: int):
         t0 = time.time()
         stats, n_val = [], 0
         for batch in _batch_iter(cfg, val_view, drop_last=False):
             bsz = batch["gt"].shape[0]
-            out = eval_step(state.params, state.bn_state, stager.eval_batch(batch))
+            out = pick_eval(bsz)(state.params, state.bn_state, stager.eval_batch(batch))
             stats.append((out["loss"] * bsz, out["mde"] * bsz))
             n_val += bsz
         va = _fetch_sums(stats)
         return float(va[0]), float(va[1]), n_val, time.time() - t0, {}
 
     summary = _epochs(cfg, state, train_view, train_step, prep, logger, val_fn, sched_steps,
-                      resume_skip, max_steps, device, on_step, lambda *a: {})
+                      resume_skip, max_steps, device, on_step, lambda *a: {}, mesh)
     return dict(summary, **timings, steps_per_epoch=steps_per_epoch)
 
 
@@ -876,6 +1001,9 @@ def _ann_eval_loop(cfg: TrainConfig, *, synthetic: bool = False, data=None,
     """Equivalent-ANN test-set evaluation (reference test.py, :80-84)."""
     device = _run_device(device)
     _check_ported(cfg)
+    mesh = _device_setup(cfg, device)
+    if mesh is not None:
+        device = mesh.device
     ann_cfg = build_ann_config(cfg)
     test_view = _test_view(cfg, synthetic, data, device)
     if cfg.import_pth:
@@ -891,12 +1019,13 @@ def _ann_eval_loop(cfg: TrainConfig, *, synthetic: bool = False, data=None,
                                       {"params": params, "bn_state": bn_state}, which)
             params, bn_state = restored["params"], restored["bn_state"]
     eval_step = make_ann_eval_step(ann_cfg, _loss_config(cfg), learn_on=cfg.learn_on)
+    pick_eval = _eval_steps(eval_step, mesh, make_sharded_ann_eval_step)
     stager = _Stager(device)
     stats = []
     n_samples = n = 0
     for batch in _batch_iter(cfg, test_view, drop_last=False):
         bsz = batch["gt"].shape[0]
-        out = eval_step(params, bn_state, stager.eval_batch(batch))
+        out = pick_eval(bsz)(params, bn_state, stager.eval_batch(batch))
         stats.append((out["loss"] * bsz, out["mde"] * bsz))
         n_samples += bsz
         n += 1

@@ -39,6 +39,7 @@ from stereospike_tpu_torch.models.stereospike import (
 )
 from stereospike_tpu_torch.objectives.losses import TotalLossConfig, total_loss
 from stereospike_tpu_torch.objectives.metrics import convert_to_lin, mean_depth_error
+from stereospike_tpu_torch.parallel.collectives import all_reduce_grads
 from stereospike_tpu_torch.snn.cuda_kernels import multistep_fire
 from stereospike_tpu_torch.train.state import Optimizer, TrainState
 
@@ -76,10 +77,11 @@ def _loss_and_metrics(params: Dict[str, torch.Tensor], batch: Batch,
                       model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
                       learn_on: str, compute_dtype: torch.dtype, remat: bool,
                       multistep: bool, use_warmup: bool, use_init_pots: bool,
-                      fire_fn: FireFn, per_sample: bool = False
+                      fire_fn: FireFn, per_sample: bool = False, group=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, MDE, full-scale depth) of a batch; with ``per_sample`` the
-    loss and MDE are :func:`per_sample_eval_stats`."""
+    loss and MDE are :func:`per_sample_eval_stats`; with a process
+    ``group`` the loss and MDE are those of every rank's batch together."""
     chunks = batch["chunks"].to(compute_dtype)
     p = ({k: v.to(compute_dtype) for k, v in params.items()}
          if compute_dtype != torch.float32 else params)
@@ -109,10 +111,10 @@ def _loss_and_metrics(params: Dict[str, torch.Tensor], batch: Batch,
     if per_sample:
         loss, mde = per_sample_eval_stats(depths, spikes, gt, mask, loss_cfg, learn_on)
         return loss, mde, depths[0]
-    loss = total_loss(depths, gt, mask, spikes, loss_cfg)
+    loss = total_loss(depths, gt, mask, spikes, loss_cfg, group)
     with torch.no_grad():
         mde = mean_depth_error(convert_to_lin(depths[0], learn_on),
-                               convert_to_lin(gt, learn_on), mask)
+                               convert_to_lin(gt, learn_on), mask, group)
     return loss, mde, depths[0]
 
 
@@ -121,7 +123,7 @@ def make_train_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
                     compute_dtype: torch.dtype = torch.float32, remat: bool = False,
                     multistep: bool = False, use_warmup: bool = False,
                     use_init_pots: bool = False, accum_steps: int = 1,
-                    fire_fn: FireFn = multistep_fire
+                    fire_fn: FireFn = multistep_fire, group=None
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """Build ``step(state, batch) -> (state, {"loss", "mde"})``.
 
@@ -135,13 +137,23 @@ def make_train_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
     live at a time; the gradient, loss and MDE are the means over the
     microbatches (each microbatch's loss its own pooled masked mean), as
     in the JAX package. ``fire_fn`` is the model's fire (the kernels; the
-    plain version for a comparison run)."""
+    plain version for a comparison run).
+
+    ``group`` (data parallelism, ``parallel/mesh.py``; the JAX
+    ``grad_psum_axis``): each rank passes its own batch; the loss and MDE
+    are formed from statistics summed over the group's ranks, so they are
+    the global batch's, and each rank's backward holds its data's share of
+    the gradient; the shares are summed (not averaged) over ranks by one
+    all-reduce before Adam, so every replica takes the same update. With
+    ``accum_steps`` each rank splits its own batch, as under the JAX
+    ``shard_map``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def loss_fn(params, batch):
         return _loss_and_metrics(params, batch, model_cfg, loss_cfg, learn_on, compute_dtype,
-                                 remat, multistep, use_warmup, use_init_pots, fire_fn)[:2]
+                                 remat, multistep, use_warmup, use_init_pots, fire_fn,
+                                 group=group)[:2]
 
     def step(state: TrainState, batch: Batch):
         state.optimizer.zero_grad(set_to_none=True)
@@ -167,9 +179,11 @@ def make_train_step(model_cfg: StereoSpikeConfig, loss_cfg: TotalLossConfig,
                 if p.grad is not None:
                     p.grad.mul_(inv)
             loss, mde = loss * inv, mde * inv
+        if group is not None:
+            all_reduce_grads(state.params.values(), group)
         lr = tx.lr(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss, "mde": mde}

@@ -6,8 +6,9 @@ TensorBoard event files under ``<log_dir>/tb_<name>/`` written with its own
 pure-Python ``EventFileWriter``. Every float scalar passed to
 :meth:`MetricsLogger.log` becomes a TensorBoard scalar.
 
-Multi-process training is not ported yet, so this process is always the
-lead process (:func:`is_lead_process`).
+In a data-parallel run (``parallel/mesh.py``) only rank 0, the lead
+process (:func:`is_lead_process`), writes: the scalars are the same on
+every rank, and N writers would interleave the files.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import sys
 import time
 from typing import Dict, Optional
+
+import torch.distributed as dist
 
 
 class _TBWriter:
@@ -50,21 +53,27 @@ class _TBWriter:
 
 def is_lead_process() -> bool:
     """Whether this process owns shared-filesystem side effects
-    (checkpoints, logs): always, until multi-process training is ported."""
-    return True
+    (checkpoints, logs): rank 0 of an initialized process group, and
+    every process outside one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class MetricsLogger:
     """Append-only ``<name>_metrics.jsonl`` and ``<name>_logs.txt`` in
     ``log_dir``, plus TensorBoard scalars when ``tensorboard`` and the
-    package is importable."""
+    package is importable. Outside the lead process every method does
+    nothing."""
 
     def __init__(self, log_dir: str, name: str = "training", echo: bool = True,
                  tensorboard: bool = True):
+        self.active = is_lead_process()
         self.jsonl_path = os.path.join(log_dir, f"{name}_metrics.jsonl")
         self.text_path = os.path.join(log_dir, f"{name}_logs.txt")
         self.tb_dir = os.path.join(log_dir, f"tb_{name}")
         self.echo = echo
+        self._tb = None
+        if not self.active:
+            return
         os.makedirs(log_dir, exist_ok=True)
         # step-less records (eval, firing rates, stream) continue the
         # TensorBoard step count from the records already in the sink, so
@@ -79,6 +88,8 @@ class MetricsLogger:
 
     def log(self, scalars: Dict, *, step: Optional[int] = None,
             epoch: Optional[int] = None) -> None:
+        if not self.active:
+            return
         rec = {"time": time.time()}
         if step is not None:
             rec["step"] = int(step)
@@ -100,12 +111,16 @@ class MetricsLogger:
                               if k not in ("time", "step", "epoch")}, int(tb_step), rec["time"])
 
     def text(self, message: str) -> None:
+        if not self.active:
+            return
         self._text.write(message.rstrip() + "\n")
         self._text.flush()
         if self.echo:
             print(message, file=sys.stderr)
 
     def close(self) -> None:
+        if not self.active:
+            return
         self._jsonl.close()
         self._text.close()
         if self._tb is not None:

@@ -316,7 +316,7 @@ def test_refusals(tmp_path):
                 fn(cfg, synthetic=True)
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["train", "--synthetic", "--checkpoint-dir", str(tmp_path)])
-    for bad in (dict(save_viz=1), dict(mesh_shape=(1, 1))):
+    for bad in (dict(save_viz=1), dict(mesh_shape=(1, 2))):
         with pytest.raises(NotImplementedError):
             loop.train_loop(dataclasses.replace(cfg, **bad), synthetic=True, device="cpu")
     mcfg = factory.stereospike(in_hw=HW)

@@ -29,9 +29,10 @@ def _modules():
 # every module of the port so far; a new one is added here as it is ported
 PORTED = (
     "cli", "data.augmentation", "data.dense", "data.fixtures", "data.mvsec", "data.packing",
-    "data.synthetic", "data.voxelizer", "deploy", "interop", "models.ann", "models.factory",
-    "models.multistep", "models.stereospike", "native", "nn.blocks", "nn.layers",
-    "objectives.losses", "objectives.metrics", "snn.cuda_kernels", "snn.neurons",
+    "data.synthetic", "data.voxelizer", "deploy", "doctor", "interop", "models.ann",
+    "models.factory", "models.multistep", "models.stereospike", "native", "nn.blocks",
+    "nn.layers", "objectives.losses", "objectives.metrics", "parallel", "parallel.collectives",
+    "parallel.mesh", "snn.cuda_kernels", "snn.neurons",
     "snn.surrogate", "sources", "streaming", "train.ann_steps", "train.checkpoint",
     "train.config", "train.loop", "train.state", "train.steps", "utils.logging",
     "utils.profiling",

@@ -150,6 +150,36 @@ def test_streaming_evaluator_matches_jax(name, pipeline, with_maps, x64):
     np.testing.assert_array_equal(first, got[0])
 
 
+def test_binning_dropped_counts_fetched_windows_as_jax():
+    """``binning_dropped`` counts a window's rejected events when its depth
+    is fetched, as the JAX evaluator does: 0 while the window is in flight
+    (``pipeline=2``), 0 after a ``reset()`` that drops the windows in
+    flight, and equal once the pipeline is flushed. Counts are integers:
+    compared exactly."""
+    kw = dict(in_hw=HW, base_channels=8)
+    jcfg, tcfg = jax_factory.stereospike(**kw), factory.stereospike(**kw)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    common = dict(block=2048, reset_each_window=False, pipeline=2)
+    theirs = JaxEvaluator(jparams, jcfg, **common)
+    ours = StreamingEvaluator(params, tcfg, device="cpu", **common)
+    window = {"left": _events(1500, seed=30), "right": _events(1500, seed=31)}
+    reads = []
+    for ev in (ours, theirs):
+        ev.push(window)
+        mid = ev.binning_dropped
+        ev.push(window)
+        ev.reset()
+        after_reset = ev.binning_dropped
+        for _ in range(3):
+            ev.push(window)
+        while ev.flush() is not None:
+            pass
+        reads.append((mid, after_reset, ev.binning_dropped))
+    assert reads[0] == reads[1]
+    assert reads[0][:2] == (0, 0) and reads[0][2] > 0
+
+
 def test_stream_loop_and_cli(tmp_path, capsys):
     """The port's serving loop returns the JAX loop's result keys, serves
     every window, and the CLI prints that dict."""
